@@ -1,90 +1,46 @@
-"""Headline benchmark: one JSON line for the driver.
+"""Headline benchmark: one JSON line.
 
-Metric: rays*steps/s for one differentiable forward+backward step on a 256^3
-synthetic volume at 1024^2 (BASELINE.md headline config; baseline target
-1e9 rays*steps/s/chip).
+Times one differentiable forward+backward step (L2 loss and its gradients
+through XLA autodiff) and one rung-1 forward render on a 256^3 synthetic
+volume at 1024^2 (BASELINE config 3), with ERT off and the view zoomed so the
+viewport covers the volume cube: every ray takes the full ~2/ray_step steps,
+so rays*steps/s counts real work. Needs a GPU; exits nonzero without one.
+
+    python bench.py
 """
 from __future__ import annotations
 
 import json
 import sys
 
-BASELINE_RAY_STEPS_PER_S = 1.0e9  # BASELINE.md: >=10^9 rays*steps/s/chip
+SIZE, VIEWPORT, ITERS = 256, 1024, 5
 
 
 def main() -> int:
+    from volrt.utils.compile_cache import setup_compile_cache
+
+    setup_compile_cache()
     import jax
 
-    backend = jax.default_backend()
-    if backend != "cpu":
-        # TPU only: stale cross-machine CPU AOT cache entries load with
-        # mismatched buffer layouts (see volrt/cli.py main()).
-        jax.config.update("jax_compilation_cache_dir", "/root/.jax_cache")
-        jax.config.update(
-            "jax_persistent_cache_min_compile_time_secs", 1.0)
-    if backend == "cpu":
-        # Keep the CPU fallback tiny so the script always completes.
-        size, viewport, iters = 32, 64, 2
-    else:
-        size, viewport, iters = 256, 1024, 5
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        print(f"bench.py needs a GPU; JAX found {dev.platform!r}",
+              file=sys.stderr)
+        return 1
 
-    from volrt.bench.harness import bench_diff_step
+    from volrt.bench.harness import bench_diff_step, bench_fwd_step
 
-    # Static per-view window for the axis-aligned headline pose (validated
-    # overflow-free on hardware — ovf counter 0 at 256^3/1024^2 — and
-    # flush-coverage-clean via diff_v3.planned_flush_lost, which
-    # bench_diff_step also re-checks at plan time; see
-    # diff_v3.default_window for the general-view derivation). Round-3
-    # progression (BASELINE.md "session 2"): unclipped z lines
-    # ((6,16,128), 351.7 ms) -> wx=64 four-phase windows (330.4) ->
-    # static no-ERT kernels (303.2) -> per-group dTF flush (298.2) ->
-    # window (4,16,64) + brick pad 8 + plan-once/render-many
-    # (bench_diff_step prepares the ViewPlan outside the timed loop):
-    # 243.5 ms = 1.107e9 rays*steps/s — over the 1e9 target. Parity:
-    # density 6.0e-6 / TF 4.8e-6 vs XLA autodiff; plan + kernel ovf 0.
-    # G=32 band groups (diff_v3.set_group_size) with matching brick
-    # pads and flush: the round-4 sweep's winner (jobd j041..j060:
-    # 243.5 -> 215.2 (G16) -> 202.5 (G32) -> 199.5 (flush 96,24) ->
-    # 192.0 ms (flush 96,16 — the y box was the lever)); overflow- and
-    # flush-coverage-clean at this pose by the plan replay, gradient
-    # parity ~1e-8 vs XLA autodiff.
-    # Brick pads (32, 24): z needs the full in-group drift (G=32 bands
-    # x ~1 voxel/band at this pose) but y drifts ~0, so the y pad
-    # shrinks one step — guard-validated (planned_window_ovf == 0 at
-    # G=32), loss-exact, 151.2 vs 152.1-152.7 ms (j220).
-    window = (4, 16, 64, 32, 24) if backend != "cpu" else None
-    flush = (96, 16) if backend != "cpu" else None
-    gsize = 32 if backend != "cpu" else None
-    # Round 5 session 2: the step runs as ONE kernel launch
-    # (diff_v3.l2_loss_grads_v3_onepass — forward march + per-ray L2
-    # cotangent + analytic backward, sv in VMEM scratch) with deferred
-    # flush-box session reads (_RMW_DEFER_READ): 170.5 -> 152.1 ms
-    # (1.91e9 rays*steps/s). Gradients bit-identical to the two-kernel
-    # custom_vjp path on hardware; window/flush validated by the
-    # planned_window_ovf/planned_flush_lost guards in bench_diff_step
-    # (a bpad-tightening sweep point that silently dropped samples is
-    # now REJECTED at plan time — BASELINE.md round-5 session 2).
-    m = bench_diff_step(
-        volume_size=size, viewport=viewport, iters=iters, window=window,
-        flush=flush, group_size=gsize, onepass=True)
-    # Forward-only companion run at the same config: the forward bound
-    # the fwd+bwd step chases, with its own MFU (SURVEY §5 roofline
-    # accounting; model = the windowed one-hot gather matmul march).
-    from volrt.bench.harness import bench_fwd_step
-
-    f = bench_fwd_step(
-        volume_size=size, viewport=viewport, iters=iters, window=window,
-        group_size=gsize)
+    m = bench_diff_step(volume_size=SIZE, viewport=VIEWPORT, iters=ITERS)
+    f = bench_fwd_step(volume_size=SIZE, viewport=VIEWPORT, iters=ITERS)
     print(json.dumps({
         "metric": "diff_fwd_bwd_ray_steps_per_s",
         "value": m["ray_steps_per_s"],
         "unit": "rays*steps/s",
-        "vs_baseline": m["ray_steps_per_s"] / BASELINE_RAY_STEPS_PER_S,
         "ms": m["ms"],
-        "mfu": m.get("mfu", 0.0),
         "fwd_ms": f["ms"],
         "fwd_ray_steps_per_s": f["ray_steps_per_s"],
-        "fwd_mfu": f["mfu"],
+        "device": {"platform": dev.platform, "kind": dev.device_kind,
+                   "count": jax.device_count()},
     }))
     return 0
 

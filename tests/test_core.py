@@ -372,7 +372,7 @@ class TestErrorLayer:
         """A render that OOMs above a height limit is stitched from row
         bands, matching the unsplit result."""
         from volrt.core.view import Camera
-        from volrt.renderers.pallas import trilinear
+        from volrt.renderers import batched
         from volrt.utils.errors import render_with_oom_fallback
 
         rc = make_raycaster(
@@ -380,7 +380,7 @@ class TestErrorLayer:
             view=Camera(dims=(16, 16)).view(),
             interpolation="trilinear", light_kd=0.0)
 
-        ref, _ = trilinear.render_float(rc)
+        ref = batched.render_float(rc)
 
         calls = []
 
@@ -389,13 +389,12 @@ class TestErrorLayer:
             calls.append(h)
             if h > 4:
                 raise RuntimeError("RESOURCE_EXHAUSTED: out of memory")
-            return trilinear.render_float(sub_rc)
+            return batched.render_float(sub_rc)
 
-        img, ovf = render_with_oom_fallback(flaky, rc)
+        img = render_with_oom_fallback(flaky, rc)
         assert max(calls) == 16 and 4 in calls
         np.testing.assert_allclose(
             np.asarray(img), np.asarray(ref), atol=1e-6)
-        assert ovf == 0.0
 
     def test_safe_call_nosafe(self):
         from volrt.utils.errors import safe_call

@@ -163,12 +163,11 @@ class TestFit:
         assert losses[-1] < losses[0] * 0.8
 
     def test_shaded_fit_loss_decreases(self):
-        """Shaded inverse rendering: diffuse targets through the fused
-        kernels' analytic shaded backward, phong through XLA autodiff."""
+        """Shaded inverse rendering through XLA autodiff: the diffuse
+        one-tap shade and gradient Blinn-Phong."""
         gt = tiny_scene()
         view = tiny_view()
-        for shading, fused in (("diffuse", True), ("phong", False),
-                               ("phong", True)):
+        for shading in ("diffuse", "phong"):
             target = render_diff_image(
                 gt, view, light_kd=0.6,
                 shaded=(shading == "diffuse"),
@@ -180,7 +179,7 @@ class TestFit:
             )
             _, losses = fit(
                 scene, [(view, target)], steps=8, lr=0.05,
-                train_tf=False, fused=fused, shading=shading,
+                train_tf=False, shading=shading,
             )
             assert losses[-1] < losses[0], (shading, losses)
 
@@ -284,16 +283,7 @@ class TestPeriodicCheckpointResume:
 
 class TestFusedFit:
     def test_fused_training_converges(self):
-        """fit(fused=True) trains through the fused Pallas kernels."""
-        import jax.numpy as jnp
-
-        from tests.conftest import synthetic_volume
-        from volrt.core.tf import default_transfer_fn
-        from volrt.core.view import Camera
-        from volrt.diff.render import DiffScene, render_diff_image
-        from volrt.diff.render import scene_from_volume
-        from volrt.train.fit import fit
-
+        """fit() on the XLA autodiff step converges from a flat start."""
         n, wh = 8, 16
         gt = scene_from_volume(
             jnp.asarray(synthetic_volume(n)), default_transfer_fn(), 0.25)
@@ -302,6 +292,5 @@ class TestFusedFit:
         init = DiffScene(
             density=jnp.full((n, n, n), 0.3, jnp.float32),
             tf_base=default_transfer_fn(), ray_step=0.25)
-        _, losses = fit(init, targets, steps=8, lr=0.05,
-                        train_tf=False, fused=True)
+        _, losses = fit(init, targets, steps=8, lr=0.05, train_tf=False)
         assert losses[-1] < losses[0]

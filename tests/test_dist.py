@@ -1,6 +1,8 @@
 """Multi-device tests on the 8-virtual-CPU-device mesh (conftest):
 sharded render == unsharded render; sharded train step == single-device
 train step; driver dryrun entry."""
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -13,6 +15,8 @@ from volrt.core.view import Camera
 from volrt.diff.render import scene_from_volume, render_diff_image
 from volrt.dist.mesh import make_mesh, replicated, rows_sharding
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
 needs_devices = pytest.mark.skipif(
     jax.device_count() < 8, reason="needs 8 devices"
 )
@@ -22,82 +26,69 @@ needs_devices = pytest.mark.skipif(
 class TestShardedRender:
     def test_matches_unsharded(self):
         from volrt.dist.render import render_float_sharded
-        from volrt.renderers.pallas import blocked
+        from volrt.renderers import batched
 
         rc = make_raycaster(
             Volume.from_numpy(synthetic_volume(16)),
-            view=Camera(dims=(32, 64)).view(),  # 8 tiles over 8 devices
+            view=Camera(dims=(32, 64)).view(),  # 8 rows per device
             interpolation="trilinear",
             light_kd=0.0,
         )
         mesh = make_mesh()
-        a, ovf_a = blocked.render_float(rc)
-        b, ovf_b = render_float_sharded(rc, mesh, renderer="pallas-blocked")
+        a = batched.render_float(rc)
+        b = render_float_sharded(rc, mesh)
         np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-6)
-        assert float(ovf_a) == float(ovf_b)
 
     def test_uneven_tiles_padded(self):
         from volrt.dist.render import render_float_sharded
-        from volrt.renderers.pallas import trilinear
+        from volrt.renderers import batched
 
         rc = make_raycaster(
             Volume.from_numpy(synthetic_volume(16)),
-            view=Camera(dims=(48, 32)).view(),  # 6 tiles -> pad to 8
+            view=Camera(dims=(48, 30)).view(),  # 30 rows -> pad to 32
             interpolation="trilinear",
             light_kd=0.0,
         )
         mesh = make_mesh()
-        a, _ = trilinear.render_float(rc)
-        b, _ = render_float_sharded(rc, mesh, renderer="pallas-trilinear")
+        a = batched.render_float(rc)
+        b = render_float_sharded(rc, mesh)
+        assert b.shape == (30, 48, 4)
         np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-6)
 
-    def test_v3_matches_unsharded(self):
-        """The flagship rung shard_map'ed over ray tiles == the
-        single-device rung-5 render (diffuse shade path included), so a
-        distributed render runs the same fast kernels as training."""
+    @pytest.mark.parametrize("shading,esl", [
+        ("diffuse", False), ("phong", False), ("diffuse", True),
+        ("phong", True)])
+    def test_shaded_esl_matches_unsharded(self, shading, esl):
+        """Each device's band runs rung 1's march with its own early exit;
+        shading and the ESL leap are per-ray, so the stitched image equals
+        the single-device render."""
         from volrt.dist.render import render_float_sharded
-        from volrt.renderers.pallas import fwd_v3
+        from volrt.renderers import batched
 
-        cam = Camera(dims=(32, 64))  # 8 tiles over 8 devices
+        cam = Camera(dims=(32, 64))
         cam.set_camera_position((30.0, 20.0, 0.0))
         rc = make_raycaster(
             Volume.from_numpy(synthetic_volume(16)),
             view=cam.view(),
             interpolation="trilinear",
+            shading=shading,
+            esl=esl,
         )
         mesh = make_mesh()
-        a, ovf_a = fwd_v3.render_float(rc)
-        b, ovf_b = render_float_sharded(rc, mesh, renderer="pallas-v3")
-        np.testing.assert_allclose(
-            np.asarray(a), np.asarray(b), atol=1e-6)
-        assert float(ovf_a) == float(ovf_b)
+        a = batched.render_float(rc)
+        b = render_float_sharded(rc, mesh)
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-6)
 
     def test_bench_sharded_render_runs(self):
-        """The scaling benchmark drives the flagship rung over the full
-        mesh and reports a finite efficiency (machinery validation; the
-        real scaling number needs real multi-chip hardware)."""
+        """The scaling benchmark drives rung 1 over the full mesh and
+        reports a finite efficiency (machinery validation; the real
+        scaling number needs real devices)."""
         from volrt.bench.harness import bench_sharded_render
 
         m = bench_sharded_render(volume_size=16, viewport=64, iters=1)
         assert m["devices"] == 8
         assert m["ms_1dev"] > 0 and m["ms_ndev"] > 0
         assert np.isfinite(m["scaling_efficiency"])
-
-    def test_v3_esl_matches_unsharded(self):
-        from volrt.dist.render import render_float_sharded
-        from volrt.renderers.pallas import fwd_v3
-
-        rc = make_raycaster(
-            Volume.from_numpy(synthetic_volume(16)),
-            view=Camera(dims=(32, 64)).view(),
-            interpolation="trilinear",
-            esl=True,
-        )
-        mesh = make_mesh()
-        a, _ = fwd_v3.render_float(rc)
-        b, _ = render_float_sharded(rc, mesh, renderer="pallas-v3")
-        np.testing.assert_allclose(
-            np.asarray(a), np.asarray(b), atol=1e-6)
 
 
 @needs_devices
@@ -137,7 +128,7 @@ class TestShardedTraining:
 def test_dryrun_multichip():
     import sys
 
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, REPO)
     import __graft_entry__ as g
 
     g.dryrun_multichip(8)
@@ -146,7 +137,7 @@ def test_dryrun_multichip():
 def test_entry_compiles():
     import sys
 
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, REPO)
     import __graft_entry__ as g
 
     fn, args = g.entry()
@@ -238,224 +229,10 @@ class TestVolumeSharded:
 
 
 @needs_devices
-class TestVolumeShardedPallas:
-    def test_pallas_backend_matches_xla(self):
-        """The per-slab segment march routed through the v3 forward kernel
-        matches both the XLA slab backend and the unsharded reference,
-        with cross-slab ERT enabled."""
-        from volrt.core.tf import default_transfer_fn
-        from volrt.diff.render import render_diff_image, scene_from_volume
-        from volrt.dist.volume_sharded import render_volume_sharded
-
-        vol = np.full((16, 16, 16), 160, np.uint8)
-        scene = scene_from_volume(
-            jnp.asarray(vol), default_transfer_fn(), 0.15)
-        cam = Camera(dims=(32, 32))
-        cam.set_camera_position((25.0, 10.0, 0.0))
-        view = cam.view()
-        mesh = make_mesh()
-        ref = np.asarray(render_diff_image(scene, view, ray_threshold=0.7))
-        out = np.asarray(render_volume_sharded(
-            scene, view, mesh, ray_threshold=0.7, backend="pallas"))
-        np.testing.assert_allclose(ref, out, atol=2e-4)
-
-    def test_pallas_backend_grads_match_xla(self):
-        """The slab-seeded v3 backward (dacc0 cotangent through the
-        cross-device opacity scan) reproduces the XLA backend's scene
-        gradients — including the cross-slab terms where one slab's
-        density modulates downstream slabs' transmittance."""
-        from volrt.core.tf import default_transfer_fn
-        from volrt.diff.render import scene_from_volume
-        from volrt.dist.volume_sharded import render_volume_sharded
-
-        scene = scene_from_volume(
-            jnp.asarray(synthetic_volume(16)), default_transfer_fn(),
-            0.15)
-        cam = Camera(dims=(32, 32))
-        cam.set_camera_position((25.0, 10.0, 0.0))
-        view = cam.view()
-        mesh = make_mesh()
-        w = jnp.linspace(0.5, 1.5, 32 * 32 * 4).reshape(32, 32, 4)
-
-        def loss(s, backend):
-            img = render_volume_sharded(
-                s, view, mesh, ray_threshold=2.0, backend=backend)
-            return jnp.mean(w * img ** 2)
-
-        g_xla = jax.grad(lambda s: loss(s, "xla"))(scene)
-        g_pal = jax.grad(lambda s: loss(s, "pallas"))(scene)
-        np.testing.assert_allclose(
-            np.asarray(g_pal.density), np.asarray(g_xla.density),
-            atol=5e-5)
-        np.testing.assert_allclose(
-            np.asarray(g_pal.tf_base), np.asarray(g_xla.tf_base),
-            atol=5e-5)
-
-
-@needs_devices
 class TestShardedFusedTraining:
-    @pytest.fixture(autouse=True)
-    def _fresh_trace_caches(self):
-        # JAX 0.9 trace-cache pollution: after the volume-sharded tests'
-        # grad-of-shard_map + shard_map'ed pallas forwards, a fresh
-        # single-device trace of the fused kernels picks up mesh-typed
-        # avals from cached jaxprs ("Mesh for all inputs should be
-        # equal ... Auto ... Manual"). Clearing caches isolates the test.
-        jax.clear_caches()
-        yield
-
-    def test_fused_loss_grads_match_single_device(self):
-        """shard_map'ed v3 fused loss+grads == single-device fused path
-        (tiles are data-parallel; replicated-operand cotangents psum)."""
-        from volrt.diff.fused import render_image_fused
-        from volrt.dist.render import l2_loss_grads_v3_sharded
-
-        scene = scene_from_volume(
-            jnp.asarray(synthetic_volume(16)), default_transfer_fn(), 0.12
-        )
-        cam = Camera(dims=(32, 64))  # 8 tiles over 8 devices
-        cam.set_camera_position((30.0, 20.0, 0.0))
-        view = cam.view()
-        target = jnp.zeros((64, 32, 4), jnp.float32)
-
-        def loss_single(s):
-            img = render_image_fused(s, view)
-            return jnp.mean((img - target) ** 2)
-
-        l_ref, g_ref = jax.value_and_grad(loss_single)(scene)
-        mesh = make_mesh()
-        l_sh, g_sh = l2_loss_grads_v3_sharded(
-            scene, view, target, mesh, fast=False)
-        np.testing.assert_allclose(float(l_sh), float(l_ref), rtol=1e-5)
-        np.testing.assert_allclose(
-            np.asarray(g_sh.density), np.asarray(g_ref.density),
-            atol=1e-6)
-        np.testing.assert_allclose(
-            np.asarray(g_sh.tf_base), np.asarray(g_ref.tf_base),
-            atol=1e-6)
-
-    def test_fused_shaded_loss_grads_match_single_device(self):
-        """Mesh-sharded fused training with shading (diffuse AND phong)
-        equals the single-device fused path."""
-        from volrt.diff.fused import l2_loss_fused
-        from volrt.dist.render import l2_loss_grads_v3_sharded
-
-        scene = scene_from_volume(
-            jnp.asarray(synthetic_volume(16)), default_transfer_fn(), 0.12
-        )
-        cam = Camera(dims=(32, 32))
-        cam.set_camera_position((30.0, 20.0, 0.0))
-        view = cam.view()
-        target = jnp.zeros((32, 32, 4), jnp.float32)
-        mesh = make_mesh()
-        for shading in ("diffuse", "phong"):
-            def loss_single(s, shading=shading):
-                return l2_loss_fused(
-                    s, view, target, fast=False,
-                    shaded=(shading == "diffuse"),
-                    phong=(shading == "phong"))
-
-            l_ref, g_ref = jax.value_and_grad(loss_single)(scene)
-            l_sh, g_sh = l2_loss_grads_v3_sharded(
-                scene, view, target, mesh, fast=False, shading=shading)
-            np.testing.assert_allclose(
-                float(l_sh), float(l_ref), rtol=1e-5)
-            np.testing.assert_allclose(
-                np.asarray(g_sh.density), np.asarray(g_ref.density),
-                atol=1e-6)
-            np.testing.assert_allclose(
-                np.asarray(g_sh.tf_base), np.asarray(g_ref.tf_base),
-                atol=1e-6)
-
-    def test_fused_loss_grads_with_plan_match(self):
-        """A precomputed ViewPlan (plan-once/render-many) gives the
-        sharded step identical loss+grads to in-step planning — the
-        BASELINE-config-5 step no longer re-runs the plan prologue."""
-        from volrt.dist.render import l2_loss_grads_v3_sharded
-        from volrt.renderers.pallas.diff_v3 import prepare_view_plan
-
-        scene = scene_from_volume(
-            jnp.asarray(synthetic_volume(16)), default_transfer_fn(), 0.12
-        )
-        cam = Camera(dims=(32, 64))
-        cam.set_camera_position((30.0, 20.0, 0.0))
-        view = cam.view()
-        target = jnp.zeros((64, 32, 4), jnp.float32)
-        mesh = make_mesh()
-        l_ref, g_ref = l2_loss_grads_v3_sharded(
-            scene, view, target, mesh, fast=False)
-        plan = prepare_view_plan(
-            scene.density.shape, view, float(scene.ray_step))
-        l_p, g_p = l2_loss_grads_v3_sharded(
-            scene, view, target, mesh, fast=False, plan=plan)
-        np.testing.assert_allclose(float(l_p), float(l_ref), rtol=1e-6)
-        np.testing.assert_allclose(
-            np.asarray(g_p.density), np.asarray(g_ref.density),
-            atol=1e-7)
-        np.testing.assert_allclose(
-            np.asarray(g_p.tf_base), np.asarray(g_ref.tf_base),
-            atol=1e-7)
-
-    def test_fused_loss_grads_esl_match_single_device(self):
-        """Mesh-sharded fused training with plan-time ESL compaction
-        equals the single-device fused esl path."""
-        from volrt.diff.fused import l2_loss_fused
-        from volrt.dist.render import l2_loss_grads_v3_sharded
-
-        scene = scene_from_volume(
-            jnp.asarray(synthetic_volume(16)), default_transfer_fn(), 0.12
-        )
-        cam = Camera(dims=(32, 64))
-        cam.set_camera_position((30.0, 20.0, 0.0))
-        view = cam.view()
-        target = jnp.zeros((64, 32, 4), jnp.float32)
-        mesh = make_mesh()
-
-        def loss_single(s):
-            return l2_loss_fused(s, view, target, fast=False, esl=True)
-
-        l_ref, g_ref = jax.value_and_grad(loss_single)(scene)
-        l_sh, g_sh = l2_loss_grads_v3_sharded(
-            scene, view, target, mesh, fast=False, esl=True)
-        np.testing.assert_allclose(float(l_sh), float(l_ref), rtol=1e-5)
-        np.testing.assert_allclose(
-            np.asarray(g_sh.density), np.asarray(g_ref.density),
-            atol=1e-6)
-        np.testing.assert_allclose(
-            np.asarray(g_sh.tf_base), np.asarray(g_ref.tf_base),
-            atol=1e-6)
-
-    def test_chunked_esl_matches_full(self):
-        """Chunked gradient accumulation with esl=True == the unchunked
-        fused esl loss+grads (the 512^3-scale path keeps ESL)."""
-        from volrt.diff.fused import l2_loss_fused
-        from volrt.renderers.pallas.diff_v3 import loss_grads_v3_chunked
-
-        scene = scene_from_volume(
-            jnp.asarray(synthetic_volume(16)), default_transfer_fn(), 0.12
-        )
-        cam = Camera(dims=(32, 64))
-        cam.set_camera_position((30.0, 20.0, 0.0))
-        view = cam.view()
-        target = jnp.zeros((64, 32, 4), jnp.float32)
-
-        def loss_single(s):
-            return l2_loss_fused(s, view, target, fast=False, esl=True)
-
-        l_ref, g_ref = jax.value_and_grad(loss_single)(scene)
-        l_c, g_c = loss_grads_v3_chunked(
-            scene, view, target, 2, fast=False, esl=True)
-        np.testing.assert_allclose(float(l_c), float(l_ref), rtol=1e-5)
-        np.testing.assert_allclose(
-            np.asarray(g_c.density), np.asarray(g_ref.density),
-            atol=1e-6)
-        np.testing.assert_allclose(
-            np.asarray(g_c.tf_base), np.asarray(g_ref.tf_base),
-            atol=1e-6)
-
     def test_fit_volume_sharded_trains(self):
         """End-to-end Z-slab-sharded training: loss decreases with the
-        volume split across the mesh and marched by the v3 kernels."""
+        volume split across the mesh."""
         from volrt.diff.render import DiffScene
         from volrt.train.fit import fit
 
@@ -506,96 +283,19 @@ class TestShardedFusedTraining:
             assert np.isfinite(np.asarray(g.density)).all()
             assert float(jnp.linalg.norm(g.density)) > 0
 
-    def test_volume_sharded_esl_matches(self):
-        """Plan-time ESL compaction on the slab marches (pallas backend,
-        global emptiness grid shifted to slab-local plans) is
-        image-exact vs the uncompacted slab render."""
-        from volrt.dist.volume_sharded import render_volume_sharded
-
-        vol = np.zeros((16, 16, 16), np.uint8)
-        vol[10:14, 4:12, 4:12] = 220
-        scene = scene_from_volume(
-            jnp.asarray(vol), default_transfer_fn(), 0.15)
-        cam = Camera(dims=(24, 24))
-        cam.set_camera_position((25.0, 10.0, 0.0))
-        view = cam.view()
-        mesh = make_mesh()
-        a = render_volume_sharded(
-            scene, view, mesh, backend="pallas")
-        b = render_volume_sharded(
-            scene, view, mesh, backend="pallas", esl=True)
-        np.testing.assert_allclose(
-            np.asarray(b), np.asarray(a), atol=1e-6)
-
-        def loss(s):
-            img = render_volume_sharded(
-                s, view, mesh, backend="pallas", esl=True)
-            return jnp.mean(img ** 2)
-
-        g = jax.grad(loss)(scene)
-        assert np.isfinite(np.asarray(g.density)).all()
-        assert float(jnp.linalg.norm(g.density)) > 0
-
-    def test_volume_sharded_shaded_pallas_matches_unsharded(self):
-        """Diffuse shading through the PALLAS slab backend (the v3 slab
-        kernel's shade tap, round 5) equals the unsharded shaded diff
-        renderer on the 8-device mesh; the light-tap cotangent flows
-        through the fused backward (VERDICT round-4 #5)."""
-        from volrt.dist.volume_sharded import render_volume_sharded
-
-        vol = synthetic_volume(16)
-        scene = scene_from_volume(
-            jnp.asarray(vol), default_transfer_fn(), 0.15)
-        cam = Camera(dims=(24, 24))
-        cam.set_camera_position((25.0, 10.0, 0.0))
-        view = cam.view()
-        mesh = make_mesh()
-        ref = render_diff_image(scene, view, light_kd=0.6, shaded=True)
-        img = render_volume_sharded(
-            scene, view, mesh, shading="diffuse", light_kd=0.6,
-            backend="pallas")
-        np.testing.assert_allclose(
-            np.asarray(img), np.asarray(ref), atol=2e-5)
-
-        # ESL composes with the shaded pallas slab path (image-exact).
-        img_esl = render_volume_sharded(
-            scene, view, mesh, shading="diffuse", light_kd=0.6,
-            backend="pallas", esl=True)
-        np.testing.assert_allclose(
-            np.asarray(img_esl), np.asarray(img), atol=1e-6)
-
-        def loss(s):
-            img = render_volume_sharded(
-                s, view, mesh, shading="diffuse", light_kd=0.6,
-                backend="pallas")
-            return jnp.mean(img ** 2)
-
-        g = jax.grad(loss)(scene)
-        assert np.isfinite(np.asarray(g.density)).all()
-        assert float(jnp.linalg.norm(g.density)) > 0
-
-    def test_fit_volume_sharded_shaded_esl_trains(self):
-        """fit(volume_sharded=True, shading="diffuse", esl=True): the
-        shaded pallas slab backend trains with plan-time ESL compaction
-        (the round-4 composition hole, VERDICT #5)."""
+    def test_fit_volume_sharded_esl_raises(self):
+        """The Z-slab march has no empty-space leap: fit refuses esl
+        there instead of silently ignoring it."""
         from volrt.diff.render import DiffScene
         from volrt.train.fit import fit
 
-        vol = synthetic_volume(16)
-        gt = scene_from_volume(
-            jnp.asarray(vol), default_transfer_fn(), 0.15)
-        cam = Camera(dims=(24, 24))
-        cam.set_camera_position((25.0, 10.0, 0.0))
-        view = cam.view()
-        target = render_diff_image(gt, view, light_kd=0.6, shaded=True)
         scene = DiffScene(
-            density=jnp.full(vol.shape, 0.3, jnp.float32),
+            density=jnp.full((16, 16, 16), 0.3, jnp.float32),
             tf_base=default_transfer_fn(), ray_step=0.15)
-        mesh = make_mesh()
-        _, losses = fit(scene, [(view, target)], steps=3, lr=0.05,
-                        train_tf=False, mesh=mesh, volume_sharded=True,
-                        shading="diffuse", esl=True)
-        assert losses[-1] < losses[0]
+        view = Camera(dims=(16, 16)).view()
+        with pytest.raises(NotImplementedError, match="esl"):
+            fit(scene, [(view, jnp.zeros((16, 16, 4)))], steps=1,
+                mesh=make_mesh(), volume_sharded=True, esl=True)
 
     def test_fit_volume_sharded_shaded_trains(self):
         from volrt.diff.render import DiffScene
@@ -633,5 +333,5 @@ class TestShardedFusedTraining:
             tf_base=default_transfer_fn(), ray_step=0.15)
         mesh = make_mesh()
         _, losses = fit(scene, [(view, target)], steps=3, lr=0.05,
-                        train_tf=False, fused=True, mesh=mesh)
+                        train_tf=False, mesh=mesh)
         assert losses[-1] < losses[0]

@@ -93,13 +93,13 @@ class TestBatchedParity:
     def test_matches_golden(self, bucky, angles, interp):
         rc = _rc(bucky, dims=(48, 48), angles=angles, interpolation=interp)
         a = np.asarray(golden.render_float(rc))
-        b = np.asarray(batched.render_float_jit(rc))
+        b = np.asarray(batched.render_float(rc))
         np.testing.assert_allclose(a, b, atol=2e-5, rtol=0)
 
     def test_matches_golden_esl_off(self, bucky):
         rc = _rc(bucky, esl=False)
         a = np.asarray(golden.render_float(rc))
-        b = np.asarray(batched.render_float_jit(rc))
+        b = np.asarray(batched.render_float(rc))
         np.testing.assert_allclose(a, b, atol=2e-5)
 
     def test_matches_golden_perspective(self, bucky):
@@ -108,7 +108,7 @@ class TestBatchedParity:
         cam.set_camera_position((-45, -45, 0), 2.0)
         rc = make_raycaster(Volume.from_numpy(bucky), view=cam.view())
         a = np.asarray(golden.render_float(rc))
-        b = np.asarray(batched.render_float_jit(rc))
+        b = np.asarray(batched.render_float(rc))
         np.testing.assert_allclose(a, b, atol=2e-5)
 
     def test_uint8_output(self, bucky):
@@ -121,7 +121,7 @@ class TestBatchedParity:
     def test_nonsquare_viewport(self, synth48):
         rc = _rc(synth48, dims=(52, 36))
         a = np.asarray(golden.render_float(rc))
-        b = np.asarray(batched.render_float_jit(rc))
+        b = np.asarray(batched.render_float(rc))
         assert a.shape == (36, 52, 4)
         np.testing.assert_allclose(a, b, atol=2e-5)
 

@@ -1,11 +1,11 @@
-"""volrt — TPU-native differentiable volume raycasting framework.
+"""volrt — differentiable volume raycasting framework in JAX.
 
-A from-scratch JAX/Pallas/pjit rebuild of the capabilities of
-MiroBeno/Volume-Rendering: PVM/DDS/RAW volume loading, orbit camera,
-1D transfer functions, front-to-back raycasting with early-ray-termination
-and empty-space-leaping, a ladder of renderers from a golden JAX reference
-up to blocked Pallas TPU kernels, analytic gradients w.r.t. voxels and TF,
-multi-chip sharded rendering/training, a benchmark harness, and a CLI.
+A from-scratch JAX rebuild of the capabilities of MiroBeno/Volume-Rendering:
+PVM/DDS/RAW volume loading, orbit camera, 1D transfer functions,
+front-to-back raycasting with early-ray-termination and empty-space-leaping,
+a golden JAX reference renderer and a batched XLA renderer, gradients
+w.r.t. voxels and TF, multi-device sharded rendering/training, a benchmark
+harness, and a CLI.
 """
 
 __version__ = "0.1.0"

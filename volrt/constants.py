@@ -3,7 +3,7 @@
 These mirror the operating constants of the reference renderer
 (`/root/reference/VolumeRendering/RaycasterBase.h:12-16`, `common.h:16`) so that
 parity between the JAX golden renderer and the reference algorithm is
-well-defined, while everything else about the implementation is TPU-native.
+well-defined; everything else about the implementation is plain JAX.
 """
 
 # 1D transfer-function LUT resolution (reference: RaycasterBase.h:15).
@@ -17,8 +17,9 @@ TF_RATIO = 256 // TF_SIZE
 ESL_VOLUME_DIMS = 32
 ESL_MIN_BLOCK_SIZE = 8
 
-# Number of renderer rungs in the ladder (reference: common.h:16).
-RENDERER_COUNT = 6  # reference ladder (5) + pallas-v3
+# Number of renderer rungs in the ladder: the golden reference and the
+# batched XLA march (the reference ladder has five, common.h:16).
+RENDERER_COUNT = 2
 
 # Default render parameters (reference: RaycasterBase.cpp:9-20).
 DEFAULT_RAY_STEP = 0.06

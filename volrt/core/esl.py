@@ -1,6 +1,6 @@
 """Empty-space-leaping (ESL) min-max block grid.
 
-TPU-native rebuild of the reference's ESL machinery: the O(N^3) host triple
+Vectorized rebuild of the reference's ESL machinery: the O(N^3) host triple
 loop that builds a 32^3 per-block min/max table (reference:
 RaycasterBase.cpp:94-125) becomes a padded block-reshape + reduction that XLA
 vectorizes, and the packed uint32 bitmask (reference: RaycasterBase.cpp:62-67)
@@ -88,7 +88,7 @@ def empty_distance_grid(empty: jax.Array) -> jax.Array:
     ``dist == 0`` at non-empty blocks; ``dist == m >= 1`` guarantees every
     block within max-norm radius ``m - 1`` is empty. Built by iterated
     3x3x3 min-dilation (``reduce_window``) over the 32^3 grid — the
-    TPU-native distance transform that upgrades the reference's
+    vectorized distance transform that upgrades the reference's
     one-block-at-a-time leap (RaycasterBase.h:67-85) into multi-block
     sphere-tracing leaps. No reference counterpart.
     """

@@ -1,6 +1,6 @@
 """Ray-bundle generation and AABB intersection (vectorized, pure jnp).
 
-TPU-native replacement for the per-pixel ``View::get_ray``
+Vectorized replacement for the per-pixel ``View::get_ray``
 (reference: ViewBase.h:23-35) and the slab-method ``Raycaster::intersect``
 (reference: RaycasterBase.h:32-42): instead of one ray per thread we build the
 whole bundle as ``(H, W, 3)`` arrays in one vectorized expression, which XLA

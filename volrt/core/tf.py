@@ -38,7 +38,7 @@ def premultiply(base_tf: jax.Array) -> jax.Array:
 def first_opaque_index(premult_tf: jax.Array) -> jax.Array:
     """For each LUT index x, the first index y >= x with nonzero opacity.
 
-    TPU-native equivalent of the reference's ``esl_temp_tf`` helper table
+    Vectorized equivalent of the reference's ``esl_temp_tf`` helper table
     (reference: RaycasterBase.cpp:53-61): computed with a reverse cummin over
     indices instead of the O(TF_SIZE^2) nested loop. Entries whose suffix is
     fully transparent get ``TF_SIZE``.

@@ -1,6 +1,6 @@
 """Core pytree types of the framework.
 
-Design notes (TPU-first):
+Design notes:
   * Everything that participates in `jit` tracing is a registered dataclass
     pytree; shape-determining fields (volume dims, viewport dims, projection
     mode, ray step) are static metadata so XLA sees fully static shapes and
@@ -12,7 +12,7 @@ Design notes (TPU-first):
   * The ESL emptiness grid is a dense ``bool[32, 32, 32]`` array ``[z, y, x]``
     rather than the reference's packed uint32 bitmask
     (reference: RaycasterBase.h:52-65) — bit packing is a CUDA constant-memory
-    footprint trick; on TPU a dense bool grid vectorizes cleanly.
+    footprint trick; a dense bool grid vectorizes cleanly.
 """
 from __future__ import annotations
 
@@ -124,7 +124,7 @@ class View:
 class Raycaster:
     """The full render state for one frame — the framework's central pytree.
 
-    TPU-native analog of the reference ``Raycaster`` struct
+    JAX analog of the reference ``Raycaster`` struct
     (reference: RaycasterBase.h:20-31).
 
     Attributes:

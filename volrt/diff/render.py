@@ -65,8 +65,6 @@ def scene_empty_grid(scene: DiffScene):
     Training caveat: ESL is a *forward* optimization — skipped samples
     contribute zero color under the current TF, so images are unchanged,
     but their (possibly nonzero) density/TF gradients are skipped too.
-    Fused and reference paths skip identically, so gradient parity between
-    them is preserved.
     """
     from volrt.core import esl as esl_mod
     from volrt.core.types import Volume, default_esl_block_dims
@@ -198,10 +196,10 @@ def render_diff(
         return (acc, alive), None
 
     # Chunked rematerialization: without it, reverse-mode through the march
-    # saves every step's gather intermediates (O(steps * pixels) HBM — OOM at
-    # 256^3 / 1024^2). Checkpointing each chunk keeps only chunk-boundary
-    # carries and recomputes the chunk forward during backward — the standard
-    # TPU memory/FLOPs trade.
+    # saves every step's gather intermediates (O(steps * pixels) device
+    # memory). Checkpointing each chunk keeps only chunk-boundary carries and
+    # recomputes the chunk forward during backward — the standard
+    # memory/FLOPs trade.
     chunk = min(CHECKPOINT_CHUNK, n_steps)
     n_chunks = -(-n_steps // chunk)
 
@@ -216,7 +214,7 @@ def render_diff(
             None,
         )
 
-    acc0 = jnp.zeros(origins.shape[:-1] + (4,), jnp.float32)
+    acc0 = jnp.zeros(origins.shape[:-1] + (4,), scene.density.dtype)
     starts = jnp.arange(n_chunks, dtype=jnp.float32) * chunk
     (acc, _), _ = jax.lax.scan(chunk_step, (acc0, hit), starts)
     return acc

@@ -1,9 +1,9 @@
 """Device-mesh construction and sharding specs.
 
-One logical axis ``"rays"`` spans all devices (hosts x chips flattened): ray
-tiles are embarrassingly parallel in the forward pass, so a 1-D mesh laid out
-in device order keeps gradient all-reduces on ICI within a slice first, DCN
-last — the layout XLA's collective scheduler expects.
+One logical axis ``"rays"`` spans all devices (hosts x devices flattened):
+pixel rows are embarrassingly parallel in the forward pass, and every GPU of
+a host reaches every other over NVLink at the same rate, so a 1-D mesh in
+device order is all the layout the algorithm needs.
 
 Multi-host entry: call :func:`init_distributed` once per process before any
 jax call (wraps ``jax.distributed.initialize``); single-process/multi-device

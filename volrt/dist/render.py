@@ -1,9 +1,11 @@
-"""Sharded rendering: ray tiles split across a device mesh.
+"""Sharded forward rendering: pixel-row bands split across a device mesh.
 
-Forward rendering is embarrassingly parallel over pixels; the Pallas kernels
-are shard_map'ed over the tile axis (XLA cannot auto-partition a custom
-kernel), volume and TF replicated. This is the TPU equivalent of scaling the
-reference's 16x16 thread-block grid across chips/hosts.
+Forward rendering is embarrassingly parallel over pixels. The full view's
+ray bundle is cut into one band of rows per device; each device runs rung 1's
+lockstep march (:func:`volrt.renderers.batched.march`) over its own band, with
+its own early exit, while the volume and TF are replicated. The rays of a
+band are the full bundle's rays, so the stitched image equals the
+single-device render.
 """
 from __future__ import annotations
 
@@ -13,254 +15,42 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
+from volrt.core import rays as rays_mod
 from volrt.core import sampling
 from volrt.core.types import Raycaster
 from volrt.dist.mesh import RAY_AXIS
-from volrt.renderers.pallas import layout
+from volrt.renderers.batched import march
 
 
-def _pad_tiles(rays: jax.Array, n_dev: int) -> jax.Array:
-    """Pad the tile axis to a multiple of the device count (dead tiles)."""
-    t = rays.shape[0]
-    tp = -(-t // n_dev) * n_dev
-    if tp == t:
-        return rays
-    return jnp.pad(rays, ((0, tp - t), (0, 0), (0, 0)))
+@partial(jax.jit, static_argnames=("mesh",))
+def render_float_sharded(rc: Raycaster, mesh: Mesh) -> jax.Array:
+    """Render with pixel rows sharded over ``mesh`` -> ``f32[H, W, 4]``.
 
-
-@partial(jax.jit, static_argnames=("mesh", "renderer", "window", "shade"))
-def render_float_sharded(
-    rc: Raycaster,
-    mesh: Mesh,
-    renderer: str = "pallas-blocked",
-    window: tuple[int, int] | None = None,
-    shade: bool = True,
-) -> tuple[jax.Array, jax.Array]:
-    """Render with ray tiles sharded over ``mesh``; returns (image, overflow).
-
-    ``renderer``: ``"pallas-trilinear"``, ``"pallas-blocked"``, or
-    ``"pallas-v3"`` (the flagship rung — a distributed render then runs
-    the same kernels as the single-chip fast path).
-    """
-    del shade
-    if renderer == "pallas-v3":
-        return _render_float_sharded_v3(rc, mesh, window)
-    if renderer == "pallas-trilinear":
-        from volrt.renderers.pallas import trilinear as mod
-        from volrt.renderers.pallas.common import pad_volume_3d as pad_vol
-
-        vol = pad_vol(rc.volume)
-    elif renderer == "pallas-blocked":
-        from volrt.renderers.pallas import blocked as mod
-        from volrt.renderers.pallas.common import pad_volume_3d_any
-
-        vol = pad_volume_3d_any(rc.volume, jnp.uint8)
-    else:
-        raise ValueError(f"unknown sharded renderer: {renderer}")
-
-    from volrt.renderers.pallas.common import pad_tf, scalars_array
-
+    Rows are padded (with copies of the last row, then dropped) to a
+    multiple of the device count."""
+    origins, directions = rays_mod.get_rays(rc.view)
     w, h = rc.view.dims
-    rays = layout.prepare_ray_tiles(rc)
-    t = rays.shape[0]
     n_dev = mesh.devices.size
-    rays = _pad_tiles(rays, n_dev)
-    tfp = pad_tf(rc.transfer_fn)
-    scal = scalars_array(rc)
-    if window is None:
-        window = mod.default_window(rc)
+    pad = -(-h // n_dev) * n_dev - h
+    if pad:
+        origins = jnp.pad(origins, ((0, pad), (0, 0), (0, 0)), mode="edge")
+        directions = jnp.pad(
+            directions, ((0, pad), (0, 0), (0, 0)), mode="edge")
 
-    tile_fn = partial(
-        mod.render_tiles,
-        dims=rc.volume.dims,
-        ray_step=rc.ray_step,
-        window=window,
-    )
-    sharded = jax.shard_map(
-        lambda s, r, v, tf: tile_fn(s, r, v, tf),
+    def band(rc_l, o, d):
+        acc = march(rc_l, o.reshape(-1, 3), d.reshape(-1, 3))
+        return acc.reshape(o.shape[:-1] + (4,))
+
+    img = jax.shard_map(
+        band,
         mesh=mesh,
-        in_specs=(P(), P(RAY_AXIS), P(), P()),
-        out_specs=(P(RAY_AXIS), P(RAY_AXIS)),
-        check_vma=False,
-    )
-    out, ovf = sharded(scal, rays, vol, tfp)
-    return layout.untile_rays(out[:t], w, h), jnp.sum(ovf[:t, 0, 0])
-
-
-def _render_float_sharded_v3(rc: Raycaster, mesh: Mesh, window):
-    """Rung-5 (pallas-v3) forward with ray tiles shard_map'ed over
-    ``mesh`` — the distributed render of BASELINE config 5 on the fast
-    kernels. The pure-XLA plan prologue (``plan_windows``) runs outside
-    the shard_map (XLA partitions it over the sharded tile axis
-    automatically); only the Pallas kernel needs manual sharding.
-    Matches the unsharded rung-5 render exactly (per-tile compute is
-    tile-local). Supports ``rc.shading`` diffuse/phong and plan-time ESL
-    compaction like the single-chip rung."""
-    from volrt.renderers.pallas.diff_v3 import (
-        TILE, _brick_shape, _pallas_fwd, _phase_volumes, _view_window,
-        plan_windows)
-
-    if rc.interpolation != "trilinear":
-        raise ValueError("pallas-v3 renders trilinear mode only")
-    density = rc.volume.data.astype(jnp.float32) / 255.0
-    d, h, w_ = density.shape
-    dims = (w_, h, d)
-    view = rc.view
-    wv, hv = view.dims
-    shaded = rc.shading == "diffuse"
-    phong = rc.shading == "phong"
-    window = _view_window(dims, view, window, shaded, phong)
-    vols = _phase_volumes(density, window[2])
-    tiles = layout.prepare_ray_tiles_raw(
-        view, rc.ray_step, None, tile_w=TILE, tile_h=TILE)
-    t = tiles.shape[0]
-    n_dev = mesh.devices.size
-    tiles = _pad_tiles(tiles, n_dev)
-    bz, by = _brick_shape(vols[0].shape, window[0], window[1],
-                          window[3:5])
-    esl_grid = (rc.esl_empty, rc.esl_block_dims) if rc.esl else None
-    org = plan_windows(
-        tiles, dims, vols[0].shape, rc.ray_step, window[0], window[1],
-        bz, by, wx=window[2], view_dims=view.dims,
-        empty=esl_grid[0] if esl_grid is not None else None,
-        esl_block=esl_grid[1] if esl_grid is not None else None)
-    rays_t = jnp.swapaxes(tiles, 1, 2)
-    lp = view.light_pos.astype(jnp.float32).reshape(3)
-    scal = jnp.concatenate([
-        jnp.asarray(rc.ray_threshold, jnp.float32).reshape(1),
-        jnp.asarray(rc.light_kd, jnp.float32).reshape(1),
-        lp, jnp.zeros(3, jnp.float32)]).reshape(1, 8)
-    tfl = jnp.pad(rc.transfer_fn.astype(jnp.float32), ((0, 0), (0, 4)))
-
-    def shard_fn(scal, org_l, rays_l, tfl, *vols_l):
-        return _pallas_fwd(
-            scal, org_l, rays_l, tuple(vols_l), tfl, dims=dims,
-            ray_step=rc.ray_step, window=window, fast=False,
-            shade=shaded and not phong, phong=phong)
-
-    out = jax.shard_map(
-        shard_fn,
-        mesh=mesh,
-        in_specs=(P(), P(RAY_AXIS), P(RAY_AXIS), P(),
-                  *([P()] * len(vols))),
+        in_specs=(P(), P(RAY_AXIS), P(RAY_AXIS)),
         out_specs=P(RAY_AXIS),
         check_vma=False,
-    )(scal, org, rays_t, tfl, *vols)
-    colors = jnp.swapaxes(out[:t, :4, :], 1, 2)
-    img = layout.untile_rays(colors, wv, hv, tile_w=TILE, tile_h=TILE)
-    return img, jnp.sum(out[:t, 4, :])
+    )(rc, origins, directions)
+    return img[:h]
 
 
-def render_sharded(rc: Raycaster, mesh: Mesh, **kw) -> jax.Array:
-    img, _ = render_float_sharded(rc, mesh, **kw)
-    return sampling.write_color(img)
-
-
-def l2_loss_grads_v3_sharded(scene, view, target, mesh,
-                             ray_threshold=0.95, fast=True,
-                             window=None, flush=None,
-                             shading=None, light_kd=0.6,
-                             plan=None, esl=False, need_dtf=True):
-    """MSE loss + scene gradients with ray tiles shard_map'ed over
-    ``mesh`` through the v3 fused differentiable kernels.
-
-    The data-parallel training configuration of BASELINE.md on the fast
-    path: each device runs the fused forward+backward on its tile shard
-    (volume/TF replicated, P() in-specs); the shard_map transpose psums
-    the replicated operands' cotangents over ICI automatically. Loss and
-    gradients match the single-device fused path exactly (the loss is
-    additive over tiles).
-
-    ``plan``: a precomputed diff_v3.ViewPlan for this view
-    (plan-once/render-many — skips the per-step XLA plan prologue, same
-    as the single-chip path; the sharded org/ray tables shard over the
-    tile axis like the target). ``esl=True`` re-derives the TF's
-    empty-group compaction from the live scene each step and plans with
-    it (mutually exclusive with ``plan``, which would embed a stale
-    empty set).
-    """
-    from volrt.renderers.pallas.diff_v3 import (
-        TILE, _phase_volumes, _brick_shape, _view_window, plan_windows,
-        render_tiles_v3)
-
-    d, h, w = scene.density.shape
-    dims = (w, h, d)
-    wv, hv = view.dims
-    shaded = shading == "diffuse"
-    phong = shading == "phong"
-    # Shared resolver (light-tap/gradient-tap widening + xbox opt-out)
-    # keeps this path and prepare_view_plan in exact agreement, so a
-    # precomputed plan's org table matches the kernel's static window.
-    window = _view_window(dims, view, window, shaded, phong)
-    wp, hp = layout.pad_dims(wv, hv, TILE, TILE)
-    tgt = jnp.asarray(target, jnp.float32)
-    tgt = jnp.pad(tgt, ((0, hp - hv), (0, wp - wv), (0, 0)))
-    tgt_t = layout.tile_rays(tgt, wv, hv, tile_w=TILE, tile_h=TILE)
-    n_dev = mesh.devices.size
-    tgt_t = _pad_tiles(tgt_t, n_dev)
-    denom = float(hv) * float(wv) * 4.0
-    fl = None if flush is None else tuple(flush)
-
-    if plan is not None and esl:
-        raise ValueError(
-            "plan embeds a fixed empty set; use esl=True without a plan "
-            "(re-planned per step) or bake esl_grid into the plan")
-
-    def loss_fn(sc):
-        premult = jnp.concatenate(
-            [sc.tf_base[:, :3] * sc.tf_base[:, 3:4],
-             sc.tf_base[:, 3:4]], axis=-1)
-        tfl = jnp.pad(premult, ((0, 0), (0, 4)))
-        vols = _phase_volumes(
-            sc.density, window[2],
-            storage=jnp.bfloat16 if fast else None)
-        lp = view.light_pos.astype(jnp.float32).reshape(3)
-        scal = jnp.concatenate([
-            jnp.asarray(ray_threshold, jnp.float32).reshape(1),
-            jnp.asarray(
-                light_kd if (shaded or phong) else 0.0,
-                jnp.float32).reshape(1),
-            lp, jnp.zeros(3, jnp.float32)]).reshape(1, 8)
-
-        if plan is not None:
-            org = _pad_tiles(plan.org, n_dev)
-            rays_t = _pad_tiles(plan.rays_t, n_dev)
-        else:
-            bz, by = _brick_shape(vols[0].shape, window[0], window[1],
-                                  window[3:5])
-            tiles = layout.prepare_ray_tiles_raw(
-                view, sc.ray_step, None, tile_w=TILE, tile_h=TILE)
-            tiles = _pad_tiles(tiles, n_dev)
-            empty = esl_block = None
-            if esl:
-                from volrt.diff.render import scene_empty_grid
-
-                empty, esl_block, _ = scene_empty_grid(sc)
-            # Window planning is pure XLA — partitioned automatically
-            # outside the shard_map (only the Pallas kernel needs manual
-            # sharding).
-            org = plan_windows(
-                tiles, dims, vols[0].shape, sc.ray_step, window[0],
-                window[1], bz, by, wx=window[2], view_dims=view.dims,
-                empty=empty, esl_block=esl_block)
-            rays_t = jnp.swapaxes(tiles, 1, 2)
-
-        def shard_fn(scal, org_l, rays_l, tgt_l, tfl, *vols):
-            out = render_tiles_v3(
-                scal, org_l, rays_l, tuple(vols), tfl, dims,
-                sc.ray_step, window, fast, shaded, fl, False, phong,
-                False, bool(need_dtf))
-            diff = out[:, :4, :] - jnp.swapaxes(tgt_l, 1, 2)
-            return jax.lax.psum(jnp.sum(diff * diff), RAY_AXIS)
-
-        sq = jax.shard_map(
-            shard_fn,
-            mesh=mesh,
-            in_specs=(P(), P(RAY_AXIS), P(RAY_AXIS), P(RAY_AXIS), P(),
-                      *([P()] * len(vols))),
-            out_specs=P(),
-            check_vma=False,
-        )(scal, org, rays_t, tgt_t, tfl, *vols)
-        return sq / denom
-
-    return jax.value_and_grad(loss_fn)(scene)
+def render_sharded(rc: Raycaster, mesh: Mesh) -> jax.Array:
+    """:func:`render_float_sharded` quantized to ``uint8[H, W, 4]``."""
+    return sampling.write_color(render_float_sharded(rc, mesh))

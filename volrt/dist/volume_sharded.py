@@ -45,7 +45,7 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from volrt.core import rays as rays_mod
-from volrt.diff.render import DiffScene
+from volrt.diff.render import CHECKPOINT_CHUNK, DiffScene
 from volrt.dist.mesh import RAY_AXIS
 
 
@@ -93,7 +93,7 @@ def shard_slabs_to_devices(density, mesh: Mesh,
 
     ``density`` is a host array (numpy); each device receives only its
     ``(D/n + 2*halo, H, W)`` slab buffer, so volumes larger than one
-    device's HBM stay feasible (the per-process host copy is the
+    device's memory stay feasible (the per-process host copy is the
     remaining limit).
     """
     import numpy as np
@@ -186,12 +186,16 @@ def _slab_march(slab, z_start, full_d, tf_base, ray_step, view,
     ka = (z_lo - oz) / dz
     kb = (z_hi - oz) / dz
     k_in = jnp.maximum(jnp.minimum(ka, kb), knear)
-    k_out = jnp.minimum(jnp.maximum(ka, kb), kfar)
 
-    # First global lattice point inside the slab keeps samples identical to
-    # the unsharded march.
-    j0 = jnp.ceil(jnp.maximum(k_in - knear, 0.0) / ray_step)
-    k0 = knear + j0 * ray_step
+    # Samples sit on each ray's global lattice knear + j * ray_step,
+    # computed exactly as the unsharded march computes them. A sample
+    # belongs to the slab whose half-open z range holds its position, so
+    # a sample on a slab boundary is taken by exactly one slab. The march
+    # starts one lattice point before the slab entry to catch it.
+    j0 = jnp.maximum(
+        jnp.ceil(jnp.maximum(k_in - knear, 0.0) / ray_step) - 1.0, 0.0)
+    z_lo_vox = jnp.where(z_start == 0, -jnp.inf, z_start)
+    z_hi_vox = jnp.where(z_start + sd == full_d, jnp.inf, z_start + sd)
 
     premult = jnp.concatenate(
         [tf_base[:, :3] * tf_base[:, 3:4], tf_base[:, 3:4]], axis=-1
@@ -206,9 +210,8 @@ def _slab_march(slab, z_start, full_d, tf_base, ray_step, view,
         hi = jnp.clip(i0 + 1, 0, TF_SIZE - 1)
         return premult[lo] * (1 - frac) + premult[hi] * frac
 
-    # Per-slab bound: a slab spans sd voxels of the cube's 2/full_d pitch;
-    # the longest in-slab chord is that thickness over the smallest |dz|
-    # but never more than the cube chord.
+    # Every slab marches the cube's longest chord: a grazing ray can spend
+    # all of it inside one slab.
     n_steps = int(math.ceil(2.0 * math.sqrt(3.0) / ray_step)) + 2
 
     def _safe_normalize(v):
@@ -217,8 +220,10 @@ def _slab_march(slab, z_start, full_d, tf_base, ray_step, view,
 
     def step(carry, i):
         acc, alive = carry
-        k = k0 + i * ray_step
+        k = knear + (j0 + i) * ray_step
         pt = origins + directions * k[..., None]
+        z_vox = (pt[..., 2] + 1.0) * 0.5 * full_d
+        inside = (k <= kfar) & (z_vox >= z_lo_vox) & (z_vox < z_hi_vox)
         val = _sample_slab(slab, z_start, full_d, pt, halo)
         if alpha_only:
             t = val * TF_SIZE - 0.5
@@ -278,20 +283,28 @@ def _slab_march(slab, z_start, full_d, tf_base, ray_step, view,
                 color = jnp.concatenate(
                     [color[..., :3] + diffuse[..., None],
                      color[..., 3:4]], axis=-1)
-        mask = (alive & (k <= k_out))[..., None]
+        mask = (alive & inside)[..., None]
         acc = acc + jnp.where(mask, color * (1.0 - acc[..., 3:4]), 0.0)
-        alive = alive & (acc[..., 3] <= ray_threshold) & (k <= k_out)
+        alive = alive & (acc[..., 3] <= ray_threshold)
         return (acc, alive), None
 
-    acc0 = jnp.zeros(origins.shape[:-1] + (4,), jnp.float32)
+    acc0 = jnp.zeros(origins.shape[:-1] + (4,), slab.dtype)
     if acc0_alpha is not None:
         acc0 = acc0.at[..., 3].set(acc0_alpha)
     alive0 = hit & (acc0[..., 3] <= ray_threshold)
-    (acc, _), _ = jax.lax.scan(
-        (jax.checkpoint(step) if not alpha_only else step),
-        (acc0, alive0),
-        jnp.arange(n_steps, dtype=jnp.float32),
-    )
+    # Chunked rematerialization, as in diff/render.py: the backward keeps
+    # only chunk-boundary carries. Both passes need it, since the alpha
+    # prepass feeds the cross-slab opacity scan that gradients flow through.
+    chunk = min(CHECKPOINT_CHUNK, n_steps)
+
+    @jax.checkpoint
+    def chunk_step(carry, i0):
+        return jax.lax.scan(
+            lambda c, j: step(c, i0 + j), carry,
+            jnp.arange(chunk, dtype=jnp.float32))[0], None
+
+    starts = jnp.arange(-(-n_steps // chunk), dtype=jnp.float32) * chunk
+    (acc, _), _ = jax.lax.scan(chunk_step, (acc0, alive0), starts)
     return acc
 
 
@@ -325,22 +338,16 @@ def render_volume_sharded(
     ray_threshold: float = 0.95,
     front_to_back: bool | None = None,
     slabs: jax.Array | None = None,
-    backend: str = "xla",
     shading: str | None = None,
     light_kd: float = 0.6,
-    esl: bool = False,
 ) -> jax.Array:
     """Render with the volume Z-slab-sharded across ``mesh`` ->
     ``f32[H, W, 4]``. Differentiable w.r.t. the scene (pure XLA).
 
     ``ray_threshold`` is the ERT threshold, honored *across* slab
-    boundaries (pass 2.0 to disable). ``backend="pallas"`` routes each
-    slab's segment march through the v3 kernels
-    (renderers/pallas/diff_v3.render_slab_v3) — the fast path; it is
-    differentiable too: the fused backward emits each segment's
-    upstream-opacity cotangent, which autodiff carries through the
-    ppermute scan into upstream slabs' density gradients.
-    ``front_to_back`` is the slab march
+    boundaries (pass 2.0 to disable). Autodiff carries each segment's
+    upstream-opacity cotangent through the ppermute scan into upstream
+    slabs' density gradients. ``front_to_back`` is the slab march
     order (device 0's slab first); when None it is derived from the view's
     z direction, which requires a concrete (non-traced) view — under an
     outer jit pass it explicitly (it selects the static ppermute
@@ -351,28 +358,9 @@ def render_volume_sharded(
     ``shading``: per-sample shading with the unsharded diff renderer's
     exact semantics. The slabs get a wider halo so every light/gradient
     tap resolves slab-locally; shading alters RGB only, so the
-    cross-slab opacity scan and ERT are unchanged. "diffuse" (the
-    reference one-tap shade) runs on BOTH backends — the pallas slab
-    kernel carries the shade tap (round-5; the differentiable path
-    flows its light-tap cotangent too) — "phong" on the XLA backend
-    only.
-
-    ``esl=True`` (pallas backend only): plan-time empty-group
-    compaction per slab — each device's march plan drops groups whose
-    tap footprint lies entirely in TF-empty blocks of the GLOBAL
-    emptiness grid (derived from the full scene each call), so empty
-    space costs zero kernel time on every slab. Image-exact (the usual
-    skipped-TF-gradient caveat of ESL training applies).
+    cross-slab opacity scan and ERT are unchanged ("diffuse" = the
+    reference one-tap shade, "phong" = gradient Blinn-Phong).
     """
-    if shading == "phong" and backend == "pallas":
-        raise NotImplementedError(
-            "phong in volume-sharded mode uses the XLA backend "
-            "(backend='xla'); the pallas slab kernel carries the "
-            "diffuse tap only (shading='diffuse')")
-    if esl and backend != "pallas":
-        raise NotImplementedError(
-            "esl in volume-sharded mode uses the pallas backend "
-            "(plan-time compaction; the XLA slab march has no plan)")
     if front_to_back is None:
         try:
             front_to_back = bool(view.direction[2] >= 0)
@@ -382,15 +370,13 @@ def render_volume_sharded(
                 "traced (it selects the static ppermute schedule)") from e
     return _render_volume_sharded(
         scene, view, mesh, jnp.float32(ray_threshold),
-        bool(front_to_back), slabs, backend, shading,
-        jnp.float32(light_kd), esl)
+        bool(front_to_back), slabs, shading, jnp.float32(light_kd))
 
 
-@partial(jax.jit, static_argnames=("mesh", "front_to_back", "backend",
-                                   "shading", "esl"))
+@partial(jax.jit, static_argnames=("mesh", "front_to_back", "shading"))
 def _render_volume_sharded(scene, view, mesh, ray_threshold,
-                           front_to_back, slabs, backend="xla",
-                           shading=None, light_kd=0.6, esl=False):
+                           front_to_back, slabs, shading=None,
+                           light_kd=0.6):
     n = mesh.devices.size
     d = scene.density.shape[0]
     slab = d // n
@@ -400,49 +386,22 @@ def _render_volume_sharded(scene, view, mesh, ray_threshold,
     halo = (slabs.shape[1] - slab) // 2
     tf_base, ray_step = scene.tf_base, scene.ray_step
     reverse = not front_to_back
-    if esl:
-        from volrt.diff.render import scene_empty_grid
 
-        empty_g, esl_block, _ = scene_empty_grid(scene)
-    else:
-        empty_g, esl_block = jnp.zeros((1, 1, 1), bool), 1
-
-    def per_device(slab_block, tfb, empty_g):
-        pos = jax.lax.axis_index(RAY_AXIS)
-        z_start = pos * slab
-        premult = jnp.concatenate(
-            [tfb[:, :3] * tfb[:, 3:4], tfb[:, 3:4]], axis=-1)
-        if backend == "pallas":
-            from volrt.renderers.pallas.diff_v3 import render_slab_v3
-
-            eg = (empty_g, esl_block) if esl else None
-            density = slab_block[0].astype(jnp.float32)
-            shaded = shading == "diffuse"
-            # Pass 1: slab opacity (unseeded march, ERT off; shading
-            # alters RGB only, so the prepass stays unshaded).
-            a_i = render_slab_v3(
-                density, premult, ray_step, view, z_start, d,
-                ray_threshold=2.0, esl_grid=eg, halo=halo)[0][..., 3]
-            p_i = _opacity_exclusive_scan(a_i, n, reverse)
-            acc = render_slab_v3(
-                density, premult, ray_step, view, z_start, d,
-                ray_threshold=ray_threshold, acc0=p_i, esl_grid=eg,
-                halo=halo, shaded=shaded,
-                light_kd=(light_kd if shaded else 0.0))[0]
-        else:
-            # Pass 1: slab opacity (shading alters RGB only).
-            a_i = _slab_march(
-                slab_block[0], z_start, d, tfb, ray_step, view,
-                ray_threshold=2.0, alpha_only=True,
-                halo=halo)[..., 3]
-            # Pass 2: upstream opacity entering this slab.
-            p_i = _opacity_exclusive_scan(a_i, n, reverse)
-            # Pass 3: full march seeded at the upstream opacity; the
-            # delta is this slab's globally-scaled contribution.
-            acc = _slab_march(
-                slab_block[0], z_start, d, tfb, ray_step, view,
-                ray_threshold=ray_threshold, acc0_alpha=p_i,
-                halo=halo, shading=shading, light_kd=light_kd)
+    def per_device(slab_block, tfb):
+        z_start = jax.lax.axis_index(RAY_AXIS) * slab
+        # Pass 1: slab opacity (shading alters RGB only).
+        a_i = _slab_march(
+            slab_block[0], z_start, d, tfb, ray_step, view,
+            ray_threshold=2.0, alpha_only=True,
+            halo=halo)[..., 3]
+        # Pass 2: upstream opacity entering this slab.
+        p_i = _opacity_exclusive_scan(a_i, n, reverse)
+        # Pass 3: full march seeded at the upstream opacity; the
+        # delta is this slab's globally-scaled contribution.
+        acc = _slab_march(
+            slab_block[0], z_start, d, tfb, ray_step, view,
+            ray_threshold=ray_threshold, acc0_alpha=p_i,
+            halo=halo, shading=shading, light_kd=light_kd)
         seg = acc - jnp.concatenate(
             [jnp.zeros_like(acc[..., :3]), p_i[..., None]], axis=-1)
         # Pass 4: commutative reduction of pre-scaled segments.
@@ -451,8 +410,8 @@ def _render_volume_sharded(scene, view, mesh, ray_threshold,
     fn = jax.shard_map(
         per_device,
         mesh=mesh,
-        in_specs=(P(RAY_AXIS), P(), P()),
+        in_specs=(P(RAY_AXIS), P()),
         out_specs=P(),
         check_vma=False,
     )
-    return fn(slabs, tf_base, empty_g)
+    return fn(slabs, tf_base)

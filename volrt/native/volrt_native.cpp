@@ -1,7 +1,7 @@
 // Native runtime components of volrt (C ABI, loaded via ctypes).
 //
 // The reference framework's loader is native C++ (Stefan Roettger's ddsbase,
-// reference: VolumeRendering/ddsbase.cpp); this is the TPU framework's native
+// reference: VolumeRendering/ddsbase.cpp); this is volrt's native
 // equivalent, implemented from the format description derived in
 // volrt/io/pvm.py (not a copy of the reference code):
 //

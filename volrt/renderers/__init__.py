@@ -1,19 +1,13 @@
 """The renderer ladder.
 
-Five rungs mirroring the reference's renderer set (reference: Renderer.h:30-80,
-common.h:16) re-designed for TPU:
+Two rungs mirroring the first steps of the reference's renderer set
+(reference: Renderer.h:30-80, common.h:16):
 
-  0. ``jax-golden``      — per-ray vmapped reference semantics (CPURenderer analog)
-  1. ``xla-batched``     — lockstep vectorized XLA march (GPURenderer1 analog)
-  2. ``pallas-nn``       — Pallas kernel, nearest + bucket TF, VMEM-resident
-                           volume, one-hot-matmul gathers (GPURenderer2/3 analog)
-  3. ``pallas-trilinear``— Pallas kernel, trilinear + interpolated TF
-                           (GPURenderer4 analog)
-  4. ``pallas-blocked``  — blocked/DMA Pallas kernel for large volumes
-  5. ``pallas-v3``       — lane-major planned-window kernel (flagship;
-                           unshaded trilinear or gradient Blinn-Phong)
+  0. ``jax-golden``  — per-ray vmapped reference semantics (CPURenderer analog)
+  1. ``xla-batched`` — lockstep vectorized XLA march (GPURenderer1 analog);
+                       trilinear or nearest, diffuse or gradient Blinn-Phong
 
-Every rung renders the same scene allclose to rung 0 within documented
+Rung 1 renders the same scene allclose to rung 0 within documented
 tolerances.
 """
 from __future__ import annotations
@@ -27,14 +21,6 @@ def get_renderer(renderer_id: int):
         from volrt.renderers import golden as mod
     elif renderer_id == 1:
         from volrt.renderers import batched as mod
-    elif renderer_id == 2:
-        from volrt.renderers.pallas import nn as mod
-    elif renderer_id == 3:
-        from volrt.renderers.pallas import trilinear as mod
-    elif renderer_id == 4:
-        from volrt.renderers.pallas import blocked as mod
-    elif renderer_id == 5:
-        from volrt.renderers.pallas import fwd_v3 as mod
     else:
         raise ValueError(
             f"renderer id {renderer_id} out of range 0..{RENDERER_COUNT - 1}"

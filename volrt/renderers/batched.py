@@ -2,11 +2,11 @@
 
 The reference's first device rung keeps the identical per-ray algorithm and
 moves it onto the GPU one thread per pixel (reference: GPURenderer1.cu:30-63).
-The TPU-native analog is one *vectorized* program over the whole ray bundle:
-all rays march in lockstep under a single ``lax.while_loop`` with per-lane
-masks standing in for per-thread ``break`` (TPUs have no per-lane divergence),
-and a whole-bundle early exit once every ray has terminated — ERT/ESL become
-mask updates instead of control flow.
+Here it is one *vectorized* XLA program over the whole ray bundle: all rays
+march in lockstep under a single ``lax.while_loop`` with per-ray masks
+standing in for per-thread ``break``, and a whole-bundle early exit once
+every ray has terminated — ERT/ESL become mask updates instead of control
+flow. Volume taps are XLA gathers.
 """
 from __future__ import annotations
 
@@ -86,12 +86,11 @@ def esl_start_raw(
     return k0
 
 
-def render_float(rc: Raycaster) -> jax.Array:
-    """Render to a float RGBA image ``f32[H, W, 4]``."""
-    origins, directions = rays_mod.get_rays(rc.view)
-    w, h = rc.view.dims
-    o = origins.reshape(-1, 3)
-    d = directions.reshape(-1, 3)
+def march(rc: Raycaster, o: jax.Array, d: jax.Array) -> jax.Array:
+    """March the rays ``o, d: f32[N, 3]`` -> premultiplied RGBA ``f32[N, 4]``.
+
+    One lockstep ``while_loop`` over the whole bundle; it exits once every
+    ray has terminated (ERT) or left the volume."""
     knear, kfar, hit = rays_mod.intersect_aabb(o, d, rc.volume.min_bound)
 
     if rc.esl:
@@ -117,12 +116,18 @@ def render_float(rc: Raycaster) -> jax.Array:
     acc0 = jnp.zeros((o.shape[0], 4), jnp.float32)
     alive0 = hit & (k0 <= kfar)
     _, acc, _ = jax.lax.while_loop(cond, body, (k0, acc0, alive0))
+    return acc
+
+
+@jax.jit
+def render_float(rc: Raycaster) -> jax.Array:
+    """Render to a float RGBA image ``f32[H, W, 4]``."""
+    origins, directions = rays_mod.get_rays(rc.view)
+    w, h = rc.view.dims
+    acc = march(rc, origins.reshape(-1, 3), directions.reshape(-1, 3))
     return acc.reshape(h, w, 4)
-
-
-render_float_jit = jax.jit(render_float)
 
 
 def render(rc: Raycaster) -> jax.Array:
     """Render to ``uint8[H, W, 4]``."""
-    return sampling.write_color(render_float_jit(rc))
+    return sampling.write_color(render_float(rc))

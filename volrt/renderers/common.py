@@ -1,7 +1,7 @@
 """Shared per-step march math used by every renderer rung.
 
-One source of truth for the classify/shade/composite step so the golden,
-batched-XLA and Pallas renderers provably implement the same algorithm
+One source of truth for the classify/shade/composite step so the golden and
+batched-XLA renderers provably implement the same algorithm
 (reference: CPURenderer.cpp:29-39, GPURenderer4.cu:75-85).
 """
 from __future__ import annotations

@@ -7,9 +7,8 @@ Two formats, dispatched on the path:
   optimizer-state leaves and the step counter. The optimizer treedef is
   reconstructed from a freshly-initialized state of the same optimizer,
   so checkpoints stay plain arrays — no pickled code.
-- any other path: an orbax-checkpoint directory (the TPU-production
-  path: sharding-aware restore and multi-host-safe writes come from
-  orbax rather than hand-rolled IO).
+- any other path: an orbax-checkpoint directory (sharding-aware restore
+  and multi-host-safe writes come from orbax rather than hand-rolled IO).
 """
 from __future__ import annotations
 

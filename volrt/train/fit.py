@@ -4,8 +4,7 @@ The ``volrt fit`` training loop: render the scene differentiably, L2-compare
 against target images over one or more camera poses, and optimize the voxel
 density grid and/or the transfer-function LUT with optax. Under a device
 mesh, pixel rows are sharded across devices and parameter gradients are
-all-reduced by XLA-inserted collectives (psum over the ray axis) — the
-multi-host training configuration of BASELINE.md.
+all-reduced by XLA-inserted collectives (psum over the ray axis).
 """
 from __future__ import annotations
 
@@ -31,16 +30,41 @@ def l2_loss(scene: DiffScene, view: View, target: jax.Array) -> jax.Array:
     return jnp.mean((img - target) ** 2)
 
 
-def l2_loss_fused(scene: DiffScene, view: View,
-                  target: jax.Array, plan=None) -> jax.Array:
-    """L2 loss through the fused Pallas forward/backward kernels — the
-    single-chip TPU fast path (~100x the XLA scan+remat reference at
-    256^3/1024^2; see BASELINE.md). ``plan``: a precomputed
-    diff_v3.ViewPlan for this view (plan-once/render-many — fit()
-    prepares one per camera and skips the per-step plan prologue)."""
-    from volrt.diff import fused
+def make_loss_fn(shading: str | None = None, light_kd: float = 0.6,
+                 esl: bool = False, volume_mesh=None) -> Callable:
+    """The L2 loss ``(scene, view, target) -> scalar`` that :func:`fit`
+    trains.
 
-    return fused.l2_loss_fused(scene, view, target, fast=True, plan=plan)
+    ``shading``: None (unshaded), "diffuse" (the reference one-tap shade)
+    or "phong" (gradient Blinn-Phong); both are differentiated by XLA
+    autodiff. ``esl=True`` leaps each ray's leading TF-empty space (see
+    :func:`fit` for the TF-gradient caveat). ``volume_mesh``: Z-slab-shard
+    the volume over this mesh (:mod:`volrt.dist.volume_sharded`).
+    """
+    if shading not in (None, "diffuse", "phong"):
+        raise ValueError(f"unknown shading mode: {shading!r}")
+    if volume_mesh is not None:
+        if esl:
+            raise NotImplementedError(
+                "esl in volume-sharded training is not supported: the "
+                "slab march has no empty-space leap")
+        from volrt.dist.volume_sharded import render_volume_sharded
+
+        def sharded_loss(scene, view, target):
+            img = render_volume_sharded(
+                scene, view, volume_mesh, shading=shading,
+                light_kd=light_kd)
+            return jnp.mean((img - target) ** 2)
+
+        return sharded_loss
+
+    def loss(scene, view, target):
+        img = render_diff_image(
+            scene, view, esl=esl, light_kd=(light_kd if shading else 0.0),
+            shaded=(shading == "diffuse"), phong=(shading == "phong"))
+        return jnp.mean((img - target) ** 2)
+
+    return loss
 
 
 def make_optimizer(lr: float = 1e-2) -> optax.GradientTransformation:
@@ -53,36 +77,21 @@ def make_train_step(
     train_density: bool = True,
     train_tf: bool = True,
     mesh=None,
-    loss_grads_fn: Callable | None = None,
-    constrain_target_rows: bool = True,
     two_dispatch: bool = False,
 ):
-    """Build a jitted train step ``(state, view, target) -> (state, loss)``.
+    """Build a train step ``(state, view, target) -> (state, loss)``.
 
     With ``mesh``, the target image (and thus the ray bundle) is sharded over
     pixel rows across devices; scene parameters are replicated and their
-    gradients psum'd by XLA. Frozen leaves get zeroed gradients (so one
+    gradients all-reduced by XLA. Frozen leaves get zeroed gradients (so one
     optimizer covers density-only, TF-only and joint fits).
 
-    With ``loss_grads_fn`` (``(scene, view, target) -> (loss, grads)``),
-    that function replaces ``value_and_grad(loss_fn)`` — used for chunked
-    gradient accumulation at 512^3 scale (diff_v3.loss_grads_v3_chunked)
-    and for the shard_map'ed fused path (dist.render). In the latter case
-    the loss shards its own ray tiles, so ``constrain_target_rows=False``
-    skips the row-sharding constraint while keeping the replicated
-    state/loss out_shardings (so train-state buffers stay consistently
-    mesh-replicated across steps).
-
-    ``two_dispatch=True`` (requires ``loss_grads_fn``) runs the
-    loss+grads as its own dispatch (outer trace eager — the shard_map
-    and Pallas calls inside still compile and cache) and jits only the
-    optimizer update. Needed for the shard_map'ed fused path: wrapping
-    shard_map in an outer jit intermittently trips a JAX 0.9 dispatch
-    bug on the CPU mesh ("Execution supplied N buffers but compiled
-    program expected M" — triggered by prior eager runs of the same
-    shard_map or by ``jax.clear_caches()``); the eager outer dispatch
-    sidesteps it at small overhead (the prologue ops around the kernel
-    are a fraction of the step's work).
+    ``two_dispatch=True`` runs the loss+grads as its own dispatch (outer
+    trace eager; the jitted renderers inside still compile and cache) and
+    jits only the optimizer update. The volume-sharded loss needs it:
+    wrapping its shard_map in an outer jit intermittently trips a JAX 0.9
+    dispatch bug on the CPU mesh ("Execution supplied N buffers but
+    compiled program expected M").
     """
 
     def apply_update(state: TrainState, grads, loss):
@@ -94,20 +103,17 @@ def make_train_step(
             (grads.density, grads.tf_base), state.opt_state
         )
         du, tu = updates
+        # Frozen leaves are left as they are (not even clipped).
         scene = state.scene.replace(
-            density=jnp.clip(state.scene.density + du, 0.0, 1.0),
-            tf_base=jnp.clip(state.scene.tf_base + tu, 0.0, 1.0),
+            density=(jnp.clip(state.scene.density + du, 0.0, 1.0)
+                     if train_density else state.scene.density),
+            tf_base=(jnp.clip(state.scene.tf_base + tu, 0.0, 1.0)
+                     if train_tf else state.scene.tf_base),
         )
         return TrainState(scene, opt_state, state.step + 1), loss
 
-    def step(state: TrainState, view: View, target: jax.Array,
-             plan=None):
-        extra = () if plan is None else (plan,)
-        if loss_grads_fn is not None:
-            loss, grads = loss_grads_fn(state.scene, view, target, *extra)
-        else:
-            loss, grads = jax.value_and_grad(loss_fn)(
-                state.scene, view, target, *extra)
+    def step(state: TrainState, view: View, target: jax.Array):
+        loss, grads = jax.value_and_grad(loss_fn)(state.scene, view, target)
         return apply_update(state, grads, loss)
 
     if two_dispatch or (mesh is None and jax.default_backend() == "cpu"):
@@ -117,20 +123,13 @@ def make_train_step(
         # differently-parameterized outer-jit-of-grad-of-inner-jit is
         # traced in one process (e.g. a shaded fit followed by an
         # unshaded one). The eager outer dispatch sidesteps it; inner
-        # jits (the renderers) still compile, and TPU keeps the fully
-        # fused outer jit.
-        if two_dispatch and loss_grads_fn is None:
-            raise ValueError("two_dispatch requires loss_grads_fn")
+        # jits (the renderers) still compile, and accelerators keep the
+        # fully fused outer jit.
         jup = jax.jit(apply_update)
 
-        def two_phase_step(state, view, target, plan=None):
-            extra = () if plan is None else (plan,)
-            if loss_grads_fn is not None:
-                loss, grads = loss_grads_fn(state.scene, view, target,
-                                            *extra)
-            else:
-                loss, grads = jax.value_and_grad(loss_fn)(
-                    state.scene, view, target, *extra)
+        def two_phase_step(state, view, target):
+            loss, grads = jax.value_and_grad(loss_fn)(
+                state.scene, view, target)
             return jup(state, grads, loss)
 
         return two_phase_step
@@ -145,10 +144,9 @@ def make_train_step(
     rows = NamedSharding(mesh, P(RAY_AXIS))
     repl = NamedSharding(mesh, P())
 
-    def sharded_step(state, view, target, plan=None):
-        if constrain_target_rows:
-            target = jax.lax.with_sharding_constraint(target, rows)
-        return step(state, view, target, plan)
+    def sharded_step(state, view, target):
+        target = jax.lax.with_sharding_constraint(target, rows)
+        return step(state, view, target)
 
     # Prefix pytree: replicate every leaf of the state and the scalar loss.
     return jax.jit(sharded_step, out_shardings=(repl, repl))
@@ -173,15 +171,11 @@ def fit(
     checkpoint_path: str | None = None,
     checkpoint_every: int = 0,
     resume: bool = False,
-    fused: bool = False,
-    grad_chunks: int = 0,
     volume_sharded: bool = False,
     shading: str | None = None,
     light_kd: float = 0.6,
     esl: bool = False,
     esl_refresh_every: int = 0,
-    window: tuple | None = None,
-    flush: tuple[int, int] | None = None,
 ) -> tuple[DiffScene, list[float]]:
     """Fit the scene to targets; returns (scene, per-step losses).
 
@@ -189,220 +183,37 @@ def fit(
     TrainState (scene + optimizer + step) so long fits survive preemption;
     ``resume=True`` loads that state (if the file exists) and continues from
     its step counter — ``steps`` counts total steps including resumed ones.
-    ``fused=True`` trains through the fused Pallas kernels (single-chip
-    fast path; the sharded ``mesh`` path stays on the XLA renderer).
-    ``grad_chunks > 1`` (fused only) accumulates gradients over ray-tile
-    chunks so huge viewports/volumes keep the streamed-sample backward
-    within HBM (diff_v3.loss_grads_v3_chunked).
-    ``volume_sharded=True`` (requires ``mesh``) trains with the volume
-    Z-slab-sharded across the mesh instead of ray-tile data parallelism
-    — the >HBM-volume configuration: each device marches its own slab
-    through the v3 kernels and the seed cotangents flow back across the
-    ppermute opacity scan (dist.volume_sharded).
-    ``window``/``flush`` (fused paths): static per-pose kernel tunings
-    — e.g. ``diff_v3.auto_window(..., shaded=..., phong=...)`` and a
-    ``planned_flush_lost``-validated flush box. A pose-tuned shaded
-    window measured 2.5-3x over the conservative default at 256^3
-    (hardware job j033).
+    ``mesh`` trains over its devices with pixel-row data parallelism;
+    ``volume_sharded=True`` (requires ``mesh``) instead splits the volume
+    into Z-slabs across the mesh — the configuration for volumes larger
+    than one device's memory: each device marches its own slab and the
+    seed cotangents flow back across the ppermute opacity scan
+    (dist.volume_sharded).
     ``esl_refresh_every=N`` (with ``esl=True``) runs every Nth step as
-    a FULL march (esl off): under pure ESL training, TF entries whose
-    density range the running TF maps to zero opacity receive no
-    cotangent from the skipped samples — the TF can never "switch on"
-    such a range (the documented ESL TF-gradient trap,
-    diff_v3.plan_windows). The periodic full step gives every TF entry
-    its gradient, so trapped ranges open and are then marched by the
-    compacted steps from the next empty-grid refresh on; the remaining
-    (N-1)/N steps keep the ESL speedup. Tested in
-    tests/test_diff_v3.py::TestEslTfTrap.
+    a FULL march (esl off): under ESL training, samples in the leaped
+    TF-empty space receive no cotangent, so a trained TF can never
+    "switch on" a density range the running TF maps to zero opacity
+    (the ESL TF-gradient trap). The periodic full step gives every TF
+    entry its gradient; the other (N-1)/N steps keep the leap. Tested in
+    tests/test_diff.py::TestEslTfTrap.
     """
     import os
 
+    if volume_sharded and mesh is None:
+        raise ValueError("volume_sharded=True requires a mesh")
     optimizer = make_optimizer(lr)
 
-    def _build_train_step(esl, mesh=mesh):
-        # The whole loss construction is parameterized by the
-        # (static) esl flag so esl_refresh_every can compile a
-        # second, full-march step beside the compacted one. ``mesh``
-        # rides in as a default arg because the volume-sharded branch
-        # rebinds it locally.
-        loss_grads_fn = None
-        constrain_target_rows = True
-        two_dispatch = False
-        if fused:
-            def loss_fn(scene, view, target, plan=None):
-                from volrt.diff import fused as fused_mod
-
-                # Density-only fits skip the backward's dTF scatter
-                # entirely (~10% of the fused step at 256^3) — the
-                # optimizer would zero the TF gradient anyway.
-                return fused_mod.l2_loss_fused(
-                    scene, view, target, fast=True, plan=plan,
-                    window=window, flush=flush, need_tf_grad=train_tf,
-                    need_density_grad=train_density)
-        else:
-            loss_fn = l2_loss
-        if shading:
-            # Shaded inverse rendering: diffuse (reference one-tap) on both
-            # paths; gradient Blinn-Phong on the XLA autodiff path only (the
-            # fused kernels' analytic backward covers the diffuse tap).
-            # Volume-sharded shading routes through the XLA slab backend
-            # (wider halos carry the light/gradient taps; dist.volume_sharded).
-            if shading == "phong":
-                if fused:
-                    from volrt.diff import fused as fused_mod
-
-                    def loss_fn(scene, view, target, plan=None):
-                        return fused_mod.l2_loss_fused(
-                            scene, view, target, fast=True, phong=True,
-                            light_kd=light_kd, plan=plan,
-                            window=window, flush=flush,
-                            need_tf_grad=train_tf,
-                            need_density_grad=train_density)
-                else:
-                    def loss_fn(scene, view, target):
-                        img = render_diff_image(
-                            scene, view, light_kd=light_kd, phong=True)
-                        return jnp.mean((img - target) ** 2)
-            elif shading == "diffuse":
-                if fused:
-                    from volrt.diff import fused as fused_mod
-
-                    def loss_fn(scene, view, target, plan=None):
-                        return fused_mod.l2_loss_fused(
-                            scene, view, target, fast=True, shaded=True,
-                            light_kd=light_kd, plan=plan,
-                            window=window, flush=flush,
-                            need_tf_grad=train_tf,
-                            need_density_grad=train_density)
-                else:
-                    def loss_fn(scene, view, target):
-                        img = render_diff_image(
-                            scene, view, light_kd=light_kd, shaded=True)
-                        return jnp.mean((img - target) ** 2)
-            else:
-                raise ValueError(f"unknown shading mode: {shading!r}")
-        if esl:
-            # Empty-space-skipped training (plan-time group compaction on the
-            # fused path, leading leap on the XLA path): the render is
-            # image-exact, so on sparse scenes this is pure speedup.
-            # Caveat (documented at diff_v3.plan_windows, demonstrated
-            # in tests/test_diff_v3.py::TestEslTfTrap): TF entries in
-            # the current zero-opacity run receive no cotangent from
-            # skipped samples, so a trained TF cannot "switch on"
-            # density ranges the running TF maps to zero — mitigate
-            # with ``esl_refresh_every=N`` (periodic full-march step)
-            # or train with esl=False. The empty grid re-derives from
-            # the live tf_base every step, so ranges the TF *does*
-            # open during training are marched from then on.
-            if volume_sharded and shading == "phong":
-                raise NotImplementedError(
-                    "esl + phong in volume-sharded training is not "
-                    "supported (esl rides the pallas slab backend, which "
-                    "carries the diffuse tap only)")
-            if fused and (mesh is not None or (grad_chunks
-                                               and grad_chunks > 1)):
-                pass  # esl threads through loss_grads_fn below
-            elif fused:
-                from volrt.diff import fused as fused_mod
-
-                def loss_fn(scene, view, target, _sh=shading):
-                    return fused_mod.l2_loss_fused(
-                        scene, view, target, fast=True, esl=True,
-                        shaded=(_sh == "diffuse"), phong=(_sh == "phong"),
-                        light_kd=(light_kd if _sh else 0.0),
-                        window=window, flush=flush, need_tf_grad=train_tf,
-                        need_density_grad=train_density)
-            else:
-                def loss_fn(scene, view, target, _sh=shading):
-                    img = render_diff_image(
-                        scene, view, esl=True,
-                        light_kd=(light_kd if _sh else 0.0),
-                        shaded=(_sh == "diffuse"), phong=(_sh == "phong"))
-                    return jnp.mean((img - target) ** 2)
-        if volume_sharded:
-            if mesh is None:
-                raise ValueError("volume_sharded=True requires a mesh")
-            from volrt.dist.volume_sharded import render_volume_sharded
-
-            vs_mesh = mesh
-            mesh = None  # the slab loss shards itself; state stays local
-            constrain_target_rows = False
-            two_dispatch = True
-
-            def loss_grads_fn(scene, view, target):
-                def loss(s):
-                    # The pallas slab backend carries the diffuse tap
-                    # (round 5) and the ESL plan compaction; phong keeps
-                    # the XLA slab march.
-                    img = render_volume_sharded(
-                        s, view, vs_mesh,
-                        backend="xla" if shading == "phong" else "pallas",
-                        shading=shading, light_kd=light_kd, esl=esl)
-                    return jnp.mean((img - target) ** 2)
-
-                return jax.value_and_grad(loss)(scene)
-        elif fused and mesh is not None:
-            # Fused kernels under a mesh: shard_map the v3 fwd/bwd over ray
-            # tiles (XLA cannot auto-partition a custom kernel). The loss
-            # shards its own tiles, so the step wrapper only pins the state
-            # replicated (no row constraint on the raw target). Plans (when
-            # esl is off) skip the per-step prologue exactly like the
-            # single-chip path — the sharded step pads/shards them itself.
-            from volrt.dist.render import l2_loss_grads_v3_sharded
-
-            fused_mesh = mesh
-            constrain_target_rows = False
-            two_dispatch = True
-
-            def loss_grads_fn(scene, view, target, plan=None):
-                return l2_loss_grads_v3_sharded(
-                    scene, view, target, fused_mesh, fast=True,
-                    shading=shading, light_kd=light_kd, plan=plan, esl=esl,
-                    window=window, flush=flush, need_dtf=train_tf)
-        elif fused and grad_chunks and grad_chunks > 1:
-            from volrt.renderers.pallas.diff_v3 import loss_grads_v3_chunked
-
-            def loss_grads_fn(scene, view, target, plan=None):
-                return loss_grads_v3_chunked(
-                    scene, view, target, grad_chunks, fast=True,
-                    light_kd=(light_kd if shading else 0.0),
-                    shaded=(shading == "diffuse"),
-                    phong=(shading == "phong"), plan=plan, esl=esl,
-                    window=None if window is None else tuple(window),
-                    flush=flush, need_dtf=train_tf,
-                    need_dvol=train_density)
-        if (loss_grads_fn is None and fused and mesh is None
-                and not volume_sharded):
-            # Single-chip fused training rides the one-pass kernel:
-            # forward march + per-ray L2 cotangent + analytic backward
-            # in ONE launch (no streamed-sv HBM round-trip; phong's
-            # gradient channels — which previously forced a full
-            # forward REPLAY in the backward — stay in VMEM scratch).
-            # Gradients match the two-kernel path to float epsilon
-            # (bit-identical on hardware at the headline pose). Views
-            # outside the v3 footprint envelope keep the two-kernel
-            # fallback ladder.
-            from volrt.diff.fused import _v3_fits
-            from volrt.renderers.pallas.diff_v3 import (
-                l2_loss_grads_v3_onepass)
-
-            def loss_grads_fn(scene, view, target, plan=None, _esl=esl):
-                if not _v3_fits(scene, view, window):
-                    return jax.value_and_grad(
-                        lambda s: loss_fn(s, view, target, plan))(scene)
-                return l2_loss_grads_v3_onepass(
-                    scene, view, target, fast=True,
-                    window=None if window is None else tuple(window),
-                    flush=flush, plan=plan, need_dtf=train_tf,
-                    need_dvol=train_density, esl=_esl,
-                    shaded=shading == "diffuse",
-                    phong=shading == "phong", light_kd=light_kd)
+    def _build_train_step(esl):
+        loss_fn = make_loss_fn(
+            shading, light_kd, esl,
+            volume_mesh=mesh if volume_sharded else None)
+        # The volume-sharded loss shards its own slabs; its state stays
+        # local.
         return make_train_step(
             optimizer, loss_fn=loss_fn,
-            train_density=train_density, train_tf=train_tf, mesh=mesh,
-            loss_grads_fn=loss_grads_fn,
-            constrain_target_rows=constrain_target_rows,
-            two_dispatch=two_dispatch,
+            train_density=train_density, train_tf=train_tf,
+            mesh=None if volume_sharded else mesh,
+            two_dispatch=volume_sharded,
         )
 
     train_step = _build_train_step(esl)
@@ -417,26 +228,6 @@ def fit(
             logger.log(
                 f"resumed from {checkpoint_path} at step {int(state.step)}")
     losses = []
-    # Plan-once/render-many: each camera's window-origin plan depends
-    # only on view geometry, so prepare it once and reuse every step
-    # (diff_v3.ViewPlan; ~5% of a fused fwd+bwd step at 1024^2) — on the
-    # single-chip, chunked, AND mesh-sharded fused paths (the sharded
-    # step pads/shards the plan tables over the tile axis itself). ESL
-    # plans would embed the live TF's empty set (it changes as tf_base
-    # trains) and the volume-sharded path shards its own tiles — those
-    # keep the in-step plan.
-    plans = [None] * len(views_and_targets)
-    if fused and not esl and not volume_sharded:
-        from volrt.renderers.pallas.diff_v3 import prepare_view_plan
-
-        pv = jax.jit(prepare_view_plan,
-                     static_argnums=(0, 2, 3, 4, 5))
-        plans = [
-            pv(scene.density.shape, v, float(scene.ray_step),
-               None if window is None else tuple(window),
-               shading == "diffuse", shading == "phong")
-            for v, _ in views_and_targets
-        ]
     start = int(state.step)
     for i in range(start, steps):
         j = i % len(views_and_targets)
@@ -446,7 +237,7 @@ def fit(
             # Periodic full march: every TF entry gets its cotangent
             # (the ESL TF-gradient trap mitigation — see docstring).
             step_fn = refresh_step
-        state, loss = step_fn(state, view, target, plans[j])
+        state, loss = step_fn(state, view, target)
         losses.append(float(loss))
         if log_every and (i % log_every == 0):
             msg = f"fit step {i}: loss {losses[-1]:.6f}"

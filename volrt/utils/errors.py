@@ -1,4 +1,4 @@
-"""Unified error handling: the TPU analog of the reference's CUDA shim
+"""Unified error handling: the JAX analog of the reference's CUDA shim
 (cuda_safe_call / cuda_safe_malloc / the -nosafe flag,
 reference: cuda_utils.h:21-49, VolR.cpp:404-406).
 
@@ -7,7 +7,7 @@ Two pieces:
 - :func:`safe_call` — run a step, log failures; re-raise unless
   ``nosafe`` (the reference's ``NO_SAFE`` continue-past-errors mode).
 - :func:`render_with_oom_fallback` — the ``cuda_safe_malloc`` analog:
-  when a frame render exhausts HBM, split the viewport into row bands
+  when a frame render exhausts device memory, split the viewport into row bands
   (each a shifted sub-view; ray bundles are affine in pixel index, so
   band renders are exact) and stitch, halving memory per attempt.
 """
@@ -62,10 +62,10 @@ def band_view(view, r0: int, hb: int):
 def render_with_oom_fallback(render_fn, rc, log=None, max_splits: int = 4):
     """Render a frame, splitting the viewport into row bands on OOM.
 
-    ``render_fn(rc) -> (f32[H, W, 4], overflow)``; returns the stitched
-    ``(np.ndarray[H, W, 4], total_overflow)``. Each OOM halves the band
-    height (up to ``2**max_splits`` bands). Exact: band sub-views
-    reproduce the full bundle's rays bit-for-bit."""
+    ``render_fn(rc) -> f32[H, W, 4]``; returns the stitched
+    ``np.ndarray[H, W, 4]``. Each OOM halves the band height (up to
+    ``2**max_splits`` bands). Exact: band sub-views reproduce the full
+    bundle's rays bit-for-bit."""
     w, h = rc.view.dims
     n_bands = 1
     last: BaseException | None = None
@@ -75,16 +75,14 @@ def render_with_oom_fallback(render_fn, rc, log=None, max_splits: int = 4):
             continue
         hb = h // n_bands
         try:
-            rows, ovf = [], 0.0
+            rows = []
             for b in range(n_bands):
                 sub = rc.replace(view=band_view(rc.view, b * hb, hb))
-                img, o = render_fn(sub)
-                rows.append(np.asarray(img))
-                ovf += float(o)
+                rows.append(np.asarray(render_fn(sub)))
             out = rows[0] if n_bands == 1 else np.concatenate(rows, axis=0)
             if n_bands > 1 and log is not None:
                 log.log("rendered in %d row bands after OOM", n_bands)
-            return out, ovf
+            return out
         except Exception as e:  # noqa: BLE001
             if not is_oom(e):
                 raise

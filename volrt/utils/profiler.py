@@ -1,6 +1,6 @@
 """Frame profiler: per-(config, renderer) timing statistics.
 
-Rebuilds the reference ``Profiler`` (reference: Profiler.cpp:19-114) on TPU
+Rebuilds the reference ``Profiler`` (reference: Profiler.cpp:19-114) in JAX
 terms: CUDA-event timing becomes wall clock around ``block_until_ready`` (the
 same implicit device sync the reference's ``cudaEventSynchronize`` provides,
 reference: Profiler.cpp:64-66), and the stats matrix keeps the reference's
@@ -38,12 +38,6 @@ class _Stat:
 class Profiler:
     stats: dict = field(
         default_factory=lambda: defaultdict(lambda: defaultdict(_Stat))
-    )
-    # Derived per-(config, renderer) metrics beside the timing stats —
-    # e.g. {"mfu": 0.41}. Filled by the bench harness where the kernel's
-    # model FLOPs are derivable (the windowed Pallas rungs).
-    notes: dict = field(
-        default_factory=lambda: defaultdict(lambda: defaultdict(dict))
     )
     ring: list = field(default_factory=list)
     _t0: float = 0.0
@@ -108,43 +102,8 @@ class Profiler:
     def print_samples(self) -> str:
         return "samples:\n" + self._table(lambda s: float(s.samples))
 
-    def note(self, config: str, renderer: str, **metrics) -> None:
-        """Attach derived metrics (e.g. ``mfu=0.41``) to a cell."""
-        self.notes[config][renderer].update(metrics)
-
-    def _notes_table(self, key: str) -> str:
-        renderers = sorted({r for cfg in self.notes.values() for r in cfg})
-        lines = ["config," + ",".join(renderers)]
-        for config, per_r in self.notes.items():
-            row = [config]
-            for r in renderers:
-                v = per_r.get(r, {}).get(key)
-                row.append("" if v is None else f"{v:.4f}")
-            lines.append(",".join(row))
-        return "\n".join(lines)
-
-    def print_mfu(self) -> str:
-        """Measured-MFU table: FLOPs the kernel actually executed
-        (in-kernel executed-band counters x the per-band gather-matmul
-        cost — ESL compaction and ERT exit both reflected) against chip
-        peak. Always <= 1 by construction. Blank where no counter is
-        available (non-windowed rungs) or the chip peak is unknown
-        (CPU runs)."""
-        return "mfu (executed FLOPs / peak):\n" + self._notes_table("mfu")
-
-    def print_roofline(self) -> str:
-        """Nominal roofline-multiple table: model FLOPs of a FULL march
-        at nominal steps over chip peak — NOT a utilization (ERT/ESL
-        prune real work below the nominal model, so values above 1.0
-        mean the optimizations beat the brute-force roofline; the
-        reference Profiler has no analog)."""
-        return ("nominal_roofline_x (full-march model / peak; NOT a "
-                "utilization — >1 = ERT/ESL pruned work):\n"
-                + self._notes_table("roofline_x"))
-
     def reset(self) -> None:
         self.stats.clear()
-        self.notes.clear()
         self.ring.clear()
 
 
@@ -155,51 +114,3 @@ def derived_metrics(ms: float, n_rays: int, n_steps: int) -> dict:
         "rays_per_s": n_rays / s if s else 0.0,
         "ray_steps_per_s": n_rays * n_steps / s if s else 0.0,
     }
-
-
-# --- MFU derivation (the reference Profiler reports only ms,
-#     Profiler.cpp:80-114; on TPU the utilization metric is model FLOPs
-#     against chip peak) ---
-
-# Peak dense-matmul throughput per chip, FLOP/s.
-CHIP_PEAK_FLOPS = {
-    # (device_kind substring, highest-precision pass) -> peak
-    "v5 lite": {"bf16": 197e12, "f32": 197e12 / 4},
-    "v5e": {"bf16": 197e12, "f32": 197e12 / 4},
-    "v5p": {"bf16": 459e12, "f32": 459e12 / 4},
-    "v4": {"bf16": 275e12, "f32": 275e12 / 4},
-    "v6": {"bf16": 918e12, "f32": 918e12 / 4},
-}
-
-
-def chip_peak_flops(fast: bool = True) -> float:
-    """Best-effort peak FLOP/s of the local chip (0.0 if unknown)."""
-    try:
-        import jax
-
-        kind = jax.devices()[0].device_kind.lower()
-    except Exception:
-        return 0.0
-    for sub, peaks in CHIP_PEAK_FLOPS.items():
-        if sub in kind:
-            return peaks["bf16" if fast else "f32"]
-    return 0.0
-
-
-def windowed_kernel_flops(n_rays: int, n_steps: int, window_rows: int,
-                          x_width: int, backward: bool = False) -> float:
-    """Model FLOPs of the windowed gather-matmul march: each sample costs
-    one ``(rays, window_rows) x (window_rows, x_width)`` one-hot matmul
-    (2 FLOP/MAC); the analytic backward adds a same-size forward replay
-    plus the transposed dBrick matmul."""
-    per_sample = 2.0 * window_rows * x_width
-    mult = 3.0 if backward else 1.0
-    return n_rays * n_steps * per_sample * mult
-
-
-def mfu(ms: float, model_flops: float, fast: bool = True) -> float:
-    """Model FLOPs utilization vs the local chip's peak (0.0 if unknown)."""
-    peak = chip_peak_flops(fast)
-    if not peak or not ms:
-        return 0.0
-    return model_flops / (ms / 1e3) / peak
