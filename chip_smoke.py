@@ -486,7 +486,7 @@ def main(argv=None) -> int:
         return 1
     print(json.dumps({"ok": True, "device": {
         "platform": dev.platform, "kind": dev.device_kind,
-        "count": len(jax.devices())}}))
+        "count": len(jax.devices())}}), flush=True)
     return 0
 
 

@@ -45,6 +45,33 @@ class TestLogger:
         assert "session started" in text
         assert "total runtime" in text
 
+    def test_context_manager_closes(self, tmp_path, capsys):
+        from volrt.utils.logger import Logger
+
+        path = str(tmp_path / "t.log")
+        with Logger(path, mode="w") as log:
+            log.log("inside")
+        out = capsys.readouterr().out.splitlines()
+        assert out[-1].startswith("session closed")
+        assert "total runtime" in open(path).read()
+        log.close()  # a second close writes nothing
+        assert capsys.readouterr().out == ""
+
+    @pytest.mark.parametrize("argv", [
+        ["render", "--synthetic", "8", "-s", "8", "8"],
+        ["fit", "--synthetic", "8", "-s", "8", "8", "--steps", "1"]])
+    def test_commands_close_their_session(self, argv, tmp_path, capsys):
+        """A command's session is closed when ``cli.main`` returns, so a
+        caller's own last line stays last on stdout."""
+        from volrt import cli
+
+        log = str(tmp_path / "v.log")
+        extra = ["-o", str(tmp_path / "o.png")] if argv[0] == "render" else []
+        assert cli.main(argv + extra + ["--log", log]) == 0
+        assert capsys.readouterr().out.splitlines()[-1].startswith(
+            "session closed")
+        assert open(log).read().splitlines()[-1].startswith("session closed")
+
 
 class TestHarness:
     def test_tiny_config_runs(self):

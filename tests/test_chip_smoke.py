@@ -138,6 +138,24 @@ class TestCompileCache:
         assert after == before
 
 
+def test_process_last_line_is_the_result_json():
+    """Run as a process with the GPU check, the parity and the gpu tests
+    stubbed and the CLI phases real at toy size: nothing the CLI leaves
+    behind (such as a session closing at exit) prints after the result."""
+    code = (
+        "import sys, jax, chip_smoke as c\n"
+        "c.require_gpu = lambda: jax.devices()[0]\n"
+        "c.card_line = lambda: 'card, 700.00 W'\n"
+        "c.SIZE, c.VIEWPORT = 16, 32\n"
+        "c.phase_parity = lambda *a: {}\n"
+        "c.phase_gpu_tests = lambda: 1\n"
+        "sys.exit(c.main([]))\n")
+    r = _run(["-c", code])
+    assert r.returncode == 0, r.stderr
+    last = r.stdout.strip().splitlines()[-1]
+    assert json.loads(last)["ok"] is True, r.stdout
+
+
 def test_last_line_is_the_result_json(monkeypatch, capsys, tmp_path):
     """With every phase stubbed, main's last stdout line is exactly the
     result object, naming the device."""

@@ -47,6 +47,12 @@ class Logger:
             f, self._file = self._file, None
             f.close()
 
+    def __enter__(self) -> "Logger":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
 
 _default: Logger | None = None
 
